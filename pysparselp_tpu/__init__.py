@@ -1,13 +1,14 @@
-"""pysparselp_tpu — a TPU-native sparse linear-programming framework.
+"""pysparselp_tpu — a sparse linear-programming framework in JAX.
 
 Models and approximately solves large sparse LPs
 
     min cᵀx   s.t.   A_e x = b_e,   b_lower ≤ A_i x ≤ b_upper,   l ≤ x ≤ u
 
-with the capabilities of martinResearch/PySparseLP, re-architected for TPU:
+with the capabilities of martinResearch/PySparseLP, re-architected for an
+accelerator (NVIDIA GPUs; the CPU for tests):
 a host numpy modeling layer is lowered once into a statically-shaped,
 device-resident problem on which JAX solvers run as compiled loops, sharded
-over ``jax.sharding`` meshes for multi-chip execution.
+over ``jax.sharding`` meshes for multi-device execution.
 """
 
 from .batch import solve_cp_batch

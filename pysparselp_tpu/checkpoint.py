@@ -2,7 +2,7 @@
 
 The reference has no checkpointing beyond warm starts (every solver accepts
 ``x0``; the dual methods accept ``y_eq``/``y_ineq`` — ``SparseLP.py:994``,
-``DualCoordinateAscent.py:69-80``).  For long TPU runs the framework makes
+``DualCoordinateAscent.py:69-80``).  For long device runs the framework makes
 this a first-class subsystem: solver state is a handful of vectors
 (primal iterate, duals, iteration counter), saved atomically to ``.npz``
 and restorable into any solver's warm-start arguments.

@@ -51,7 +51,7 @@ class SolverConfig:
 @dataclasses.dataclass(frozen=True)
 class ChambollePockConfig(SolverConfig):
     """Flagship first-order solver (``ChambollePockPPD.py:36``) + the
-    TPU-side acceleration/layout options."""
+    device-side acceleration/layout options."""
 
     method: typing.ClassVar[str] = "chambolle_pock_ppd"
 

@@ -1,7 +1,7 @@
 // Interval constraint-propagation kernel (bound tightening) for integer
 // feasibility search.  Native runtime component of pysparselp_tpu: worklist
 // propagation is irreducibly sequential-sparse, so it runs on the host CPU
-// (the TPU analogue of the reference's Cython extension,
+// (the framework's analogue of the reference's Cython extension,
 // pysparselp/propagateConstraints.pyx:46-167).
 //
 // Built as a plain C-ABI shared library (no pybind11 in this image); loaded

@@ -1,6 +1,6 @@
 """Host-side LP modeling layer: the :class:`SparseLP` class.
 
-This is the TPU-native framework's equivalent of the reference modeling API
+This is the framework's equivalent of the reference modeling API
 (``pysparselp/SparseLP.py:162-1383``): incremental construction of
 
     min  cᵀx   s.t.  A_e x = b_e,   b_lower ≤ A_i x ≤ b_upper,   l ≤ x ≤ u
@@ -722,9 +722,8 @@ class SparseLP:
           and ``max_violated_constraint`` records the device-computed
           violation of the solver's (converted, one-sided) system instead
           of re-deriving it from the original matrices.  Curve values are
-          materialized to floats after the solve.  Intended for remote/
-          tunneled devices where every fetch costs tens of milliseconds;
-          ground-truth distance (if requested) still fetches the solution.
+          materialized to floats after the solve.  Ground-truth distance
+          (if requested) still fetches the solution.
 
         ``config`` accepts a typed per-solver dataclass from
         :mod:`pysparselp_tpu.config` (e.g. ``Admm2Config(adaptive_rho=True)``)

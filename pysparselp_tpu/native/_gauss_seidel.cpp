@@ -4,7 +4,7 @@
 // ctypes): the exact sequential sweep is inherently serial and is kept for
 // algorithmic parity with first-order ADMM variants whose convergence was
 // tuned around Gauss-Seidel inner solves (reference behavior:
-// pysparselp/gaussSiedel.pyx:21-153).  The TPU execution path uses the
+// pysparselp/gaussSiedel.pyx:21-153).  The device execution path uses the
 // damped projected Jacobi analogue instead (solvers/admm.py); this kernel
 // is the faithful host-mode twin.
 //

@@ -5,8 +5,8 @@ Framework counterpart of the reference's first native kernel
 with an optional visit order, and a bounded variant clamping each variable
 to its box inside the sweep (the reference's default ADMM inner solver).
 
-These run on the **host**: a sequential sweep cannot use the TPU.  The TPU
-ADMM path uses the damped projected Jacobi analogue
+These run on the **host**: a sequential sweep cannot use the accelerator.
+The device ADMM path uses the damped projected Jacobi analogue
 (:mod:`pysparselp_tpu.solvers.admm`); this module exists for algorithmic
 parity (``lp_admm(..., inner="gauss_seidel")`` host mode) and as a strong
 smoother for host-side experimentation.

@@ -1,29 +1,18 @@
-"""Block-ELL (BSR) sparse operator with a Pallas TPU SpMV kernel.
+"""Block-ELL (BSR) sparse operator: SpMV as dense tile contractions.
 
-This is the TPU-native answer to the reference's scipy-CSR SpMV (the op inside
-every hot solver loop, e.g. ``pysparselp/ChambollePockPPD.py:199-240``).  CSR
-gathers are hostile to the TPU memory system: every nonzero costs a random
-access.  Instead the matrix is tiled into dense ``TM×TN`` blocks and only the
-nonzero tiles are kept, padded per tile-row to a fixed count K (an "ELL of
-tiles").  SpMV then becomes a stream of dense tile matvecs:
+The matrix is tiled into dense ``TM×TN`` blocks and only the nonzero tiles
+are kept, padded per tile-row to a fixed count K (an "ELL of tiles").  SpMV
+is then one batched contraction of the tiles with the ``x`` slices their
+tile-column ids select — one gather per tile instead of one per nonzero.
+The reference's scipy-CSR SpMV this replaces sits inside every hot solver
+loop (e.g. ``pysparselp/ChambollePockPPD.py:199-240``).
 
-* the tile values stream HBM→VMEM at full bandwidth through the Pallas
-  pipeline (BlockSpec grid over ``(tile_row, k)``);
-* the needed ``x`` slice for each tile is selected by a **scalar-prefetched
-  tile-column index** (``PrefetchScalarGridSpec``) — the only "gather" left is
-  one VMEM block choice per 128×128 tile, amortizing the random access over
-  16K elements;
-* each tile contributes a ``(1,TN)·(TN,TM)`` MXU dot accumulated in the
-  revisited output block (the TPU grid is sequential over ``k``).
-
-Tiles are stored pre-transposed (``tiles[r,k][t,m] = A[r·TM+m, c·TN+t]``) so
-the kernel never transposes.  The transpose operator ``Aᵀ`` gets its own tile
-set built the same way, keeping both SpMV directions scatter-free (same
-dual-orientation trade as :class:`~pysparselp_tpu.problem.EllMatrix`).
-
-On non-TPU backends (or float64) a vectorized einsum reference path computes
-the identical tiling contraction; the Pallas kernel itself is also testable
-off-TPU through ``interpret=True``.
+Tiles are stored pre-transposed (``tiles[r,k][t,m] = A[r·TM+m, c·TN+t]``).
+The transpose operator ``Aᵀ`` gets its own tile set built the same way,
+keeping both SpMV directions scatter-free (same dual-orientation trade as
+:class:`~pysparselp_tpu.problem.EllMatrix`).  The row-sharded mesh solvers
+(``parallel/sharded_cp``, ``parallel/sharded_admm``) lower each shard's rows
+with :func:`_build_tile_ell`.
 """
 
 from __future__ import annotations
@@ -36,15 +25,10 @@ import scipy.sparse
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 DEFAULT_TM = 128
 DEFAULT_TN = 128
-
-# test hook: force the Pallas kernel to run in interpreter mode off-TPU
-_FORCE_INTERPRET = False
 
 
 def _build_tile_ell(a, tm: int, tn: int, dtype):
@@ -56,7 +40,6 @@ def _build_tile_ell(a, tm: int, tn: int, dtype):
     coo = scipy.sparse.coo_matrix(a)
     m, n = coo.shape
     t_rows = max(-(-m // tm), 1)
-    t_rows = -(-t_rows // ROW_GROUP) * ROW_GROUP  # pad for the kernel grid
     t_cols = max(-(-n // tn), 1)
     tile_r = coo.row // tm
     tile_c = coo.col // tn
@@ -94,94 +77,8 @@ def _build_tile_ell(a, tm: int, tn: int, dtype):
     )
 
 
-# tile-rows processed per grid step (the output block's sublane dim, so ≥8);
-# the builder pads T_rows to a multiple of this
-ROW_GROUP = 8
-# VMEM budgets for auto-falling back to the einsum path
-_VMEM_TILE_BUDGET = 12 * 1024 * 1024  # double-buffered tile blocks
-_VMEM_X_BUDGET = 4 * 1024 * 1024      # whole x resident in VMEM
-
-
-def _make_spmv_kernel(r_group, k, tm, acc_dtype, n_planes, bf16):
-    # HIGHEST on f32: the MXU's native f32 multiply is bf16-split; anything
-    # less loses ~3 digits.  On bf16 tiles the product is a single native
-    # pass (and Mosaic rejects an fp32 contract precision on bf16 vectors).
-    precision = None if bf16 else jax.lax.Precision.HIGHEST
-
-    def kernel(cols_ref, x_ref, tiles_ref, o_ref):
-        r0 = pl.program_id(0) * r_group
-        # fully unrolled (the VMEM budget bounds r_group*k to ≤ ~100 dots):
-        # Mosaic compiles static dot chains far better than dynamic-indexed
-        # fori_loops over block dims
-        for ri in range(r_group):
-            acc = jnp.zeros((1, tm), acc_dtype)
-            for kk in range(k):
-                c = cols_ref[r0 + ri, kk]
-                # (n_planes, TN) slice of VMEM-resident x: one plane for f32
-                # tiles, hi/lo split planes for bf16 tiles
-                xb = x_ref[pl.ds(c, 1)]
-                for p in range(n_planes):
-                    acc = acc + jnp.dot(
-                        xb[:, p], tiles_ref[ri, kk],
-                        preferred_element_type=acc_dtype,
-                        precision=precision,
-                    )
-            o_ref[ri] = acc[0]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _pallas_spmv(tiles, cols, x3d, interpret=False):
-    """(T_rows, K, TN, TM) tiles × (T_cols, P, TN) x → (T_rows, TM).
-
-    Grid over groups of ROW_GROUP tile-rows: each step streams the group's
-    dense tiles HBM→VMEM through the Pallas pipeline while ``x`` stays
-    resident in VMEM; tile-column ids live in SMEM (scalar prefetch) and
-    select ``x`` slices with one dynamic slice per 128×128 tile.  Matches
-    XLA's best batched-contraction schedule (~600 GB/s on v5e) while staying
-    scatter/gather-free.
-
-    ``x3d`` carries P planes: one for f32 tiles; for bf16 tile storage
-    (exact-representable matrices, half the HBM traffic) two planes hold the
-    hi/lo bf16 split of x, accumulated in f32 — full f32-grade products at
-    bf16 streaming cost.
-    """
-    t_rows, k, tn, tm = tiles.shape
-    acc_dtype = jnp.float32 if tiles.dtype == jnp.bfloat16 else tiles.dtype
-    n_planes = x3d.shape[1]
-    # index maps must stay i32 — under jax_enable_x64, bare python-int
-    # returns trace to i64 block indices, which Mosaic cannot legalize
-    i32 = jnp.int32
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(t_rows // ROW_GROUP,),
-        in_specs=[
-            pl.BlockSpec((x3d.shape[0], n_planes, tn),
-                         lambda g, cols: (i32(0), i32(0), i32(0))),
-            pl.BlockSpec((ROW_GROUP, k, tn, tm),
-                         lambda g, cols: (i32(g), i32(0), i32(0), i32(0))),
-        ],
-        out_specs=pl.BlockSpec((ROW_GROUP, tm),
-                               lambda g, cols: (i32(g), i32(0))),
-    )
-    return pl.pallas_call(
-        _make_spmv_kernel(ROW_GROUP, k, tm, acc_dtype, n_planes,
-                          tiles.dtype == jnp.bfloat16),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((t_rows, tm), acc_dtype),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * tiles.size * n_planes,
-            bytes_accessed=tiles.size * tiles.dtype.itemsize
-            + x3d.size * x3d.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(cols, x3d, tiles)
-
-
 def _einsum_spmv(tiles, cols, x2d):
-    """Reference contraction (identical tiling math, no Pallas)."""
+    """(T_rows, K, TN, TM) tiles × (T_cols, TN) x → (T_rows, TM)."""
     if tiles.dtype == jnp.bfloat16:
         tiles = tiles.astype(jnp.float32)  # exact by construction
     xg = jnp.take(x2d.astype(tiles.dtype), cols, axis=0)  # (T_rows, K, TN)
@@ -192,45 +89,12 @@ def _einsum_spmv(tiles, cols, x2d):
     )
 
 
-def _use_pallas(tiles, x2d) -> bool:
-    t_rows, k, tn, tm = tiles.shape
-    itemsize = tiles.dtype.itemsize
-    planes = 2 if tiles.dtype == jnp.bfloat16 else 1
-    fits = (
-        t_rows % ROW_GROUP == 0  # the kernel grid steps ROW_GROUP rows
-        and 2 * ROW_GROUP * k * tn * tm * itemsize <= _VMEM_TILE_BUDGET
-        and planes * x2d.size * itemsize <= _VMEM_X_BUDGET
-    )
-    if _FORCE_INTERPRET:
-        return fits
-    return (
-        fits
-        and jax.default_backend() == "tpu"
-        and tiles.dtype in (jnp.float32, jnp.bfloat16)
-    )
-
-
 def _tiled_apply(tiles, cols, x, n_in, n_out, tn):
     t_cols_needed = -(-n_in // tn)
-    bf16 = tiles.dtype == jnp.bfloat16
-    xf = jnp.zeros((t_cols_needed * tn,),
-                   jnp.float32 if bf16 else tiles.dtype)
-    xf = xf.at[:n_in].set(x.astype(xf.dtype)).reshape(t_cols_needed, tn)
-    if _use_pallas(tiles, xf):
-        if bf16:
-            # hi/lo bf16 split of x: Σ tiles·(xh + xl) recovers ~f32 products
-            xh = xf.astype(jnp.bfloat16)
-            xl = (xf - xh.astype(jnp.float32)).astype(jnp.bfloat16)
-            x3d = jnp.stack([xh, xl], axis=1)  # (T_cols, 2, TN)
-        else:
-            x3d = xf[:, None, :]
-        y2d = _pallas_spmv(
-            tiles, cols, x3d,
-            interpret=jax.default_backend() != "tpu",
-        )
-    else:
-        y2d = _einsum_spmv(tiles, cols, xf)
-    return y2d.reshape(-1)[:n_out]
+    acc = jnp.float32 if tiles.dtype == jnp.bfloat16 else tiles.dtype
+    xf = jnp.zeros((t_cols_needed * tn,), acc)
+    xf = xf.at[:n_in].set(x.astype(acc)).reshape(t_cols_needed, tn)
+    return _einsum_spmv(tiles, cols, xf).reshape(-1)[:n_out]
 
 
 @functools.partial(
@@ -240,7 +104,7 @@ def _tiled_apply(tiles, cols, x, n_in, n_out, tn):
 )
 @dataclasses.dataclass(frozen=True)
 class BsrMatrix:
-    """Block-ELL operator with Pallas MXU SpMV in both orientations."""
+    """Block-ELL operator (tile contractions in both orientations)."""
 
     tiles: jax.Array    # (T_rows, K, TN, TM) — for A @ x
     cols: jax.Array     # (T_rows, K) int32 tile-column ids
@@ -295,7 +159,8 @@ class BsrMatrix:
             : self.ncols
         ].set(d.astype(tiles.dtype)).reshape(t_cols, self.tn)
         dg = jnp.take(d2d, self.cols, axis=0)  # (T_rows, K, TN)
-        s = jnp.einsum("rktm,rkt->rm", tiles**2, dg)
+        s = jnp.einsum("rktm,rkt->rm", tiles**2, dg,
+                       precision=jax.lax.Precision.HIGHEST)
         return s.reshape(-1)[: self.nrows]
 
     def to_dense(self) -> jax.Array:
@@ -319,9 +184,9 @@ class BsrMatrix:
         """Lower to block-ELL.  With ``allow_bf16="exact"`` (default), f32
         matrices whose every entry is exactly bf16-representable (±1, ±0.5,
         small integers — common for combinatorial LPs) are stored as bf16
-        tiles: half the HBM traffic per SpMV with zero value error (x keeps
-        f32-grade precision through the hi/lo split in the kernel).
-        ``allow_bf16=False`` disables; ``"always"`` forces bf16."""
+        tiles: half the tile bytes per SpMV with zero value error (tiles
+        widen to f32 before the contraction).  ``allow_bf16=False``
+        disables; ``"always"`` forces bf16."""
         from ..problem import default_dtype
 
         dtype = dtype or default_dtype()

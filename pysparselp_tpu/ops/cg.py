@@ -1,9 +1,9 @@
 """Conjugate-gradient linear solvers (device-side, matrix-free).
 
-TPU-native replacement for the reference's direct sparse factorizations
+Device-side replacement for the reference's direct sparse factorizations
 (SuperLU in ``ADMM.py:105``, ``MehrotraPDIP.py:73``) and its textbook CG
 (``conjugateGradientLinearSolver.py:30-52``): sparse LU has no XLA story, so
-the framework solves SPD systems either with dense Cholesky on the MXU (small
+the framework solves SPD systems either with dense Cholesky (small
 systems) or with (preconditioned) CG built from SpMV gathers (large systems).
 """
 

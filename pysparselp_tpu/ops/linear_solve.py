@@ -1,11 +1,11 @@
-"""Factor-once linear-system solvers for SPD systems on TPU.
+"""Factor-once linear-system solvers for SPD systems on the device.
 
 Framework counterpart of the reference's ``CholeskyOrLu`` wrapper
 (``pysparselp/tools.py:74-86``), which hides scikits-CHOLMOD vs scipy-LU
-behind one ``solve`` method.  On TPU there is no sparse direct
+behind one ``solve`` method.  On the device there is no sparse direct
 factorization; the two strategies are
 
-* :class:`DenseCholesky` — densify (small/medium systems), one MXU-friendly
+* :class:`DenseCholesky` — densify (small/medium systems), one dense
   ``cho_factor``; every ``solve`` is two triangular solves.  This is the
   analogue of the reference's factor-once ``splu`` reuse
   (``ADMM.py:342``, ``MehrotraPDIP.py:73``).

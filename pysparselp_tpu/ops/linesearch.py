@@ -6,8 +6,8 @@ concave function of α; its breakpoints are where a reduced cost
 by sorting breakpoints and accumulating derivative pieces
 (``pysparselp/DualGradientAscent.py:36-65`` and the per-row variant
 ``DualCoordinateAscent.py:139-165``).  That machinery is a perfect fit for
-TPU: one ``jnp.sort``/``argsort`` + two ``cumsum`` + a ``searchsorted``, all
-VPU-parallel, with masking replacing the reference's sparse-index filtering.
+the device: one ``jnp.sort``/``argsort`` + two ``cumsum`` + a
+``searchsorted``, all data-parallel, with masking replacing the reference's sparse-index filtering.
 """
 
 from __future__ import annotations

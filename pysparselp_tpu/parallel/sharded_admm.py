@@ -31,10 +31,7 @@ import scipy.sparse
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .mesh import pad_gather_width
 from .sharded_cp import _tiled_mv
@@ -45,10 +42,10 @@ def _chunk_tiles(a, row_lo, row_hi, dtype):
 
     The ADMM builders keep the per-device slice loop rather than the CP
     solver's vectorized ``_chunk_tiles_all``: that path rounds shard
-    heights to the Pallas grid granularity (``ROW_GROUP·128`` rows), which
-    would inflate the ADMM Schur systems' dimension (an ``m_pad``-sized
-    Cholesky/CG) by orders of magnitude on small row counts."""
-    from ..ops.bsr_pallas import _build_tile_ell
+    heights to whole 128-row tiles, which would inflate the ADMM Schur
+    systems' dimension (an ``m_pad``-sized Cholesky/CG) on small row
+    counts."""
+    from ..ops.bsr import _build_tile_ell
 
     sub = scipy.sparse.csr_matrix(a[row_lo:row_hi, :])
     tiles, cols, _, _, _ = _build_tile_ell(sub, 128, 128, dtype)

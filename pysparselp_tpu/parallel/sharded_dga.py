@@ -29,10 +29,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops.linesearch import exact_dual_line_search
 from ..solvers.dual_ascent import _dual_energy, _optim_x, _safe_mid

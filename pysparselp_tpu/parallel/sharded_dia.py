@@ -1,29 +1,29 @@
 """Row-sharded DIA operators for the mesh-parallel CP solver.
 
-The single-chip flagship path lowers grid-structured LPs through the
-anchor-aligned embedding onto a handful of exact diagonals and runs the
-fused Pallas DIA kernel (``problem.anchor_align`` + ``ops/dia_pallas``).
-This module gives the multi-chip path the same layout: the aligned system
-is row-partitioned into contiguous shard blocks, and both SpMV directions
-stay in the DIA kernel on every shard:
+The single-device path lowers grid-structured LPs through the anchor-aligned
+embedding onto a handful of exact diagonals and runs the shift DIA operator
+(``problem.anchor_align`` + ``problem.DiaMatrix``).  This module gives the
+mesh path the same layout: the aligned system is row-partitioned into
+contiguous shard blocks, and both SpMV directions stay a shift loop on every
+shard:
 
 * forward (``A_d x``): shard ``d`` owns rows ``[lo, hi)``; its diagonal
   values are the column slice ``vals[:, lo:hi]`` and its *effective*
   offsets are ``off + lo`` (x is replicated, reads are absolute).  The
-  dynamic-offset kernel (``_dia_matvec_pallas_dyn``) compiles ONE program
-  with shape-derived bounds, so every shard runs the same code with its
-  own offset values — exactly what ``shard_map`` requires.
+  offsets are a traced per-shard array and every read is a
+  ``lax.dynamic_slice`` of the padded input, so ONE compiled program
+  serves every shard — exactly what ``shard_map`` requires.
 * transpose (``A_dᵀ y_d``): shard ``d``'s rows only touch the column
   window ``[lo + min_off, hi + max_off)``.  Each shard stores the
   masked window slice of ``vals_t`` (entries whose row falls outside the
   shard are zeroed) with offsets re-based to the window, computes the
-  window-local product, and scatters it into the full-width vector that
+  window-local product, and places it into the full-width vector that
   the iteration then ``psum``s — the same single all-reduce per iteration
   as the tile path.
 
 Memory per shard: ``ndiag·rows_loc`` forward values plus
 ``ndiag·(rows_loc + offset-spread)`` transpose window values — the same
-total as the single-chip operator up to the window overlap.
+total as the single-device operator up to the window overlap.
 """
 
 from __future__ import annotations
@@ -34,112 +34,77 @@ import scipy.sparse
 import jax
 import jax.numpy as jnp
 
-from ..ops.dia_pallas import (LANE, X_VMEM_BUDGET, _dia_matvec_pallas_dyn,
-                              kernel_layout, pad_vals_for_kernel)
-
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def sharded_dia_eligible(mats, ndev: int, dtype) -> bool:
-    """Whether every system can run the per-shard dynamic-offset DIA kernel.
+def dia_matvec_dynamic(vals, offs, x, n_out):
+    """``y[r] = Σ_d vals[d, r] · x[r + offs[d]]`` with runtime offsets.
 
-    The dyn kernel (:func:`~pysparselp_tpu.ops.dia_pallas._dia_matvec_pallas_dyn`)
-    keeps its padded x buffer fully VMEM-resident, sized from shapes alone:
-    forward reads the whole replicated x (≈ ``(n + 2·rows_loc)·4`` bytes),
-    the transpose its column window (≈ ``(rows_loc + 2·w)·4``).  On a real
-    TPU mesh an oversized buffer (or non-f32 compute) must fall back to the
-    tile layout instead of failing at Mosaic compile (advisor r2, medium).
-    Off-TPU the kernel always runs in interpreter mode — no constraints."""
-    if jax.default_backend() != "tpu":
-        return True
-    if np.dtype(dtype).itemsize != 4:
-        return False  # the dyn kernel computes in f32
-    for a in mats:
-        if a is None:
-            continue
-        a = scipy.sparse.csr_matrix(a)
-        m, n = a.shape
-        if a.nnz == 0:
-            continue
-        rows_loc = _cdiv(_cdiv(m, ndev), LANE) * LANE
-        coo = a.tocoo()
-        off = coo.col.astype(np.int64) - coo.row.astype(np.int64)
-        spread = int(off.max() - off.min())
-        w = min(rows_loc + _cdiv(spread, LANE) * LANE + LANE,
-                _cdiv(n, LANE) * LANE + LANE)
-        fwd_bytes = (n + 2 * rows_loc + 4 * LANE) * 4
-        t_bytes = (rows_loc + 2 * w + 4 * LANE) * 4
-        if max(fwd_bytes, t_bytes) > X_VMEM_BUDGET:
-            return False
-    return True
+    ``offs`` is a traced int array; any offset outside ``(-n_out, len(x))``
+    has no in-range element (its value row is zero) and is clamped so the
+    read stays inside the padded input."""
+    n_in = x.shape[0]
+    compute = jnp.float32 if vals.dtype == jnp.bfloat16 else x.dtype
+    xp = jnp.pad(x.astype(compute), (n_out, n_out))
+    starts = jnp.clip(offs.astype(jnp.int32), -n_out, n_in) + n_out
+    y = jnp.zeros((n_out,), compute)
+    for d in range(vals.shape[0]):
+        y = y + vals[d].astype(compute) * jax.lax.dynamic_slice(
+            xp, (starts[d],), (n_out,))
+    return y
 
 
 def build_system_dia(a, b, ndev: int):
     """Row-partition an (aligned) sparse system into per-shard DIA data.
 
     Returns ``(data, rows_loc, m_pad)`` where ``data`` holds stacked HOST
-    arrays (leading axis = mesh axis, placed by the caller): kernel-padded
-    forward values + offsets, masked transpose window values + window
-    offsets and starts, the rhs shards and the real-row mask."""
+    arrays (leading axis = mesh axis, placed by the caller): forward value
+    planes + offsets, masked transpose window planes + window offsets and
+    starts, the rhs shards and the real-row mask."""
     a = scipy.sparse.csr_matrix(a)
     m, n = a.shape
     rows_loc = _cdiv(m, ndev) if m else 1
-    # round shard height to a lane multiple so window starts stay aligned
-    rows_loc = _cdiv(rows_loc, LANE) * LANE
     m_pad = rows_loc * ndev
 
     coo = a.tocoo()
     off_all = coo.col.astype(np.int64) - coo.row.astype(np.int64)
     offsets = np.unique(off_all) if coo.nnz else np.zeros(1, np.int64)
-    ndiag = offsets.size
     min_off, max_off = int(offsets.min()), int(offsets.max())
 
-    # dense global DIA values, both orientations
-    vals = np.zeros((ndiag, m_pad))
+    # global DIA values: vals[d, r] = A[r, r + offsets[d]]
+    vals = np.zeros((offsets.size, m_pad))
     d_idx = np.searchsorted(offsets, off_all)
     np.add.at(vals, (d_idx, coo.row), coo.data)
 
-    # window width: shard rows + offset spread, grown to a fixed point of
-    # the kernel layout so the padded array's second dim IS the window
-    # length (the local op recovers it from the shape inside shard_map)
-    w = rows_loc + _cdiv(max(max_off - min_off, 0), LANE) * LANE + LANE
-    w = min(w, _cdiv(n, LANE) * LANE + LANE)
-    for _ in range(6):
-        _db, _nd, _qt, _nq = kernel_layout(ndiag, w)
-        w2 = _nq * _qt * LANE
-        if w2 == w:
-            break
-        w = w2
+    # transpose window width: shard rows + offset spread (capped at n)
+    w = min(rows_loc + max(max_off - min_off, 0), n)
 
     fwd_list, offs_list = [], []
     t_list, offs_t_list, wlo_list, bs = [], [], [], []
     if b is None:
         b = np.zeros(m)
     b_padded = np.concatenate([b, np.zeros(m_pad - m)])
+    cols_loc = np.arange(w)
     for d in range(ndev):
         lo, hi = d * rows_loc, (d + 1) * rows_loc
-        fwd_list.append(pad_vals_for_kernel(vals[:, lo:hi], rows_loc))
+        fwd_list.append(vals[:, lo:hi])
         offs_list.append(offsets + lo)
-        # transpose window: cols [wlo, wlo+w) of vals_t, masked to shard rows
-        wlo = int(np.clip(lo + min_off, 0, max(n - w, 0)))
-        wlo = wlo // LANE * LANE
-        vt = np.zeros((ndiag, w))
-        # vals_t[dd, j] = A[j + off_t_dd, j] with off_t = -off; entry
-        # belongs to this shard iff its row j - off_dd... using forward
-        # offsets: A[r, c] sits on diagonal c - r = off; vals_t[dd, c] =
-        # A[c - off_dd, c].  Keep iff lo <= c - off_dd < hi.
-        cols_glob = np.arange(wlo, min(wlo + w, n))
+        # transpose window: cols [wlo, wlo+w) of A, masked to shard rows.
+        # A[r, c] sits on diagonal c - r = off, so window column c reads
+        # row c - off; keep it iff lo <= c - off < min(hi, m)
+        wlo = int(np.clip(lo + min_off, 0, n - w))
+        vt = np.zeros((offsets.size, w))
+        cols_glob = wlo + cols_loc
         for dd, off in enumerate(offsets):
             rows_glob = cols_glob - off
-            ok = (rows_glob >= lo) & (rows_glob < hi) & (rows_glob < m)
-            src = rows_glob[ok]
-            vt[dd, cols_glob[ok] - wlo] = vals[dd, src]
-        t_list.append(pad_vals_for_kernel(vt, w))
+            ok = (rows_glob >= lo) & (rows_glob < min(hi, m))
+            vt[dd, cols_loc[ok]] = vals[dd, rows_glob[ok]]
+        t_list.append(vt)
         # window-local read offsets into the LOCAL y (length rows_loc):
-        # out j_loc reads y_glob row (wlo + j_loc) - off  ->  local index
-        # (wlo + j_loc - off) - lo  =>  off_t_local = wlo - lo - off
+        # out j reads y_glob row (wlo + j) - off  ->  local index
+        # (wlo + j - off) - lo  =>  off_t_local = wlo - lo - off
         offs_t_list.append(wlo - lo - offsets)
         wlo_list.append(wlo)
         bs.append(b_padded[lo:hi])
@@ -160,22 +125,15 @@ def build_system_dia(a, b, ndev: int):
 def local_matvec_dia(sys_l, x, n):
     """Shard-local ``A_d @ x`` (x replicated, absolute offsets)."""
     rows_loc = sys_l["b"].shape[0]
-    interp = jax.default_backend() != "tpu"
-    return _dia_matvec_pallas_dyn(
-        sys_l["dia_vals"], sys_l["dia_offs"], x, n, rows_loc,
-        interpret=interp).astype(x.dtype)
+    return dia_matvec_dynamic(sys_l["dia_vals"], sys_l["dia_offs"], x,
+                              rows_loc).astype(x.dtype)
 
 
 def local_rmatvec_dia(sys_l, y, n):
-    """Shard-local ``A_dᵀ @ y_d`` scattered into the full n-vector
+    """Shard-local ``A_dᵀ @ y_d`` placed into the full n-vector
     (followed by the iteration's psum)."""
-    interp = jax.default_backend() != "tpu"
-    rows_loc = sys_l["b"].shape[0]
-    w = sys_l["dia_vals_t"].shape[1]  # layout fixed point == window length
-    yw = _dia_matvec_pallas_dyn(
-        sys_l["dia_vals_t"], sys_l["dia_offs_t"], y, rows_loc, w,
-        interpret=interp)
-    out = jnp.zeros((max(n, w),), y.dtype)
-    wlo = sys_l["dia_wlo"][0]
-    out = jax.lax.dynamic_update_slice(out, yw.astype(y.dtype), (wlo,))
-    return out[:n]
+    w = sys_l["dia_vals_t"].shape[1]
+    yw = dia_matvec_dynamic(sys_l["dia_vals_t"], sys_l["dia_offs_t"], y, w)
+    out = jnp.zeros((n,), y.dtype)
+    return jax.lax.dynamic_update_slice(out, yw.astype(y.dtype),
+                                        (sys_l["dia_wlo"][0],))

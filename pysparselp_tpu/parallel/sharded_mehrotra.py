@@ -12,7 +12,7 @@ variables): with ``A = [A_1 | … | A_D]`` column-partitioned over the mesh,
   replicated;
 * the normal matrix is a psum of shard-local contributions,
   ``A D Aᵀ = Σ_d A_d D_d A_dᵀ`` — each device computes its local
-  ``(m × n_loc) · (n_loc × m)`` MXU product and one ``psum`` merges them;
+  ``(m × n_loc) · (n_loc × m)`` product and one ``psum`` merges them;
   the Cholesky factorization runs replicated (identical inputs on every
   device — no collective needed);
 * matvec ``A x = Σ_d A_d x_d`` is one psum; ``Aᵀ y`` is purely local;
@@ -38,13 +38,10 @@ import scipy.sparse
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops.cg import conjgrad
-from ..problem import default_dtype
+from ..problem import HIGHEST, default_dtype
 from ..solvers.base import to_np
 from .mesh import pad_gather_width
 
@@ -136,13 +133,14 @@ def _local_ops(d, use_dense, axis):
         a = d["a"][0]
 
         def matvec(v):          # full (m,), one psum
-            return jax.lax.psum(a @ v, axis)
+            return jax.lax.psum(jnp.matmul(a, v, precision=HIGHEST), axis)
 
         def rmatvec(y):         # local (n_loc,)
-            return a.T @ y
+            return jnp.matmul(a.T, y, precision=HIGHEST)
 
         def wrowsum(w):         # diag(A diag(w) Aᵀ) contribution, replicated
-            return jax.lax.psum((a * a) @ w, axis)
+            return jax.lax.psum(
+                jnp.matmul(a * a, w, precision=HIGHEST), axis)
     else:
         vals, cols = d["ell_vals"][0], d["ell_cols"][0]
         vals_t, rows_t = d["ell_vals_t"][0], d["ell_rows_t"][0]
@@ -194,7 +192,8 @@ def _ipm_iteration_sharded(data, x, y, s, theta, ridge_boost, mesh: Mesh,
 
         if use_dense:
             a = d["a"][0]
-            m_mat = jax.lax.psum((a * dd[None, :]) @ a.T, axis)
+            m_mat = jax.lax.psum(jnp.matmul(
+                a * dd[None, :], a.T, precision=HIGHEST), axis)
             ridge = (d["ridge"] + 1e-14 * jnp.max(jnp.diagonal(m_mat))
                      ) * ridge_boost
             m_mat = m_mat + ridge * jnp.eye(m_mat.shape[0],
@@ -203,8 +202,8 @@ def _ipm_iteration_sharded(data, x, y, s, theta, ridge_boost, mesh: Mesh,
 
             def solve_normal(rhs):
                 dy = jax.scipy.linalg.cho_solve(chol, rhs)
-                return dy + jax.scipy.linalg.cho_solve(chol,
-                                                       rhs - m_mat @ dy)
+                return dy + jax.scipy.linalg.cho_solve(
+                    chol, rhs - jnp.matmul(m_mat, dy, precision=HIGHEST))
         else:
             ridge = d["ridge"] * ridge_boost
             jac_diag = wrowsum(dd) + ridge
@@ -296,7 +295,8 @@ def _initial_point_sharded(data, mesh: Mesh, use_dense: bool, n_true: int):
 
         if use_dense:
             a = d["a"][0]
-            aat = jax.lax.psum(a @ a.T, axis)
+            aat = jax.lax.psum(
+                jnp.matmul(a, a.T, precision=HIGHEST), axis)
             aat = aat + d["ridge"] * jnp.eye(aat.shape[0], dtype=aat.dtype)
             chol = jax.scipy.linalg.cho_factor(aat, lower=False)
 

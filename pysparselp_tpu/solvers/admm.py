@@ -1,10 +1,10 @@
-"""ADMM LP solvers on TPU.
+"""ADMM LP solvers in JAX.
 
 * ``lp_admm`` — penalized-equality ADMM (reference ``pysparselp/ADMM.py:47-269``):
   the x-subproblem ``min ½xᵀMx − yᵀx`` with ``M = γₑAᵀA + γᵢI`` under box
   constraints.  The reference's default inner solver is a sequential bounded
   Gauss–Seidel sweep in Cython (``gaussSiedel.pyx:95-153``) — inherently
-  serial.  The TPU-native inner solver is a **damped projected Jacobi sweep**:
+  serial.  The device inner solver is a **damped projected Jacobi sweep**:
   the same per-coordinate update applied to all coordinates simultaneously,
   matrix-free (``Mx = γₑAᵀ(Ax) + γᵢx`` = two ELL gather-SpMVs; ``diag(M)``
   from the squared column sums).  Everything fuses into one compiled loop.
@@ -15,9 +15,9 @@
   ``[[γI, Aᵀ], [A, 0]]`` once with sparse LU (``ADMM.py:342``).  There is no
   XLA sparse LU, and none is needed: block elimination reduces the KKT solve
   to the SPD Schur complement ``(A Aᵀ) ν = A y − γ b``, which the framework
-  factors ONCE as a dense Cholesky on the MXU (small/medium row counts) or
-  solves with matrix-free CG (large).  Per iteration the solve is two
-  triangular MXU solves — the TPU analogue of the reference's reused LU.
+  factors ONCE as a dense Cholesky (small/medium row counts) or solves with
+  matrix-free CG (large).  Per iteration the solve is two triangular
+  solves — the analogue of the reference's reused LU.
 """
 
 from __future__ import annotations
@@ -452,7 +452,7 @@ def lp_admm2(
         ell = ell_from_scipy(a, dtype=dtype)
         data = dict(common, a=ell, b=jnp.asarray(b, dtype))
         if use_dense:
-            # Schur complement S = A Aᵀ (+ridge), factored once — the MXU
+            # Schur complement S = A Aᵀ (+ridge), factored once — the dense
             # analogue of the reference's one-time splu of the KKT system
             # (ADMM.py:342)
             s = (a @ a.T).toarray() + ridge * np.eye(m)

@@ -1,4 +1,4 @@
-"""Consensus (block-decomposition) ADMM on TPU.
+"""Consensus (block-decomposition) ADMM in JAX.
 
 Reference: ``pysparselp/ADMMBlocks.py:45-348`` — Boyd §7.1/7.2 general-form
 consensus: the equality system (after slack conversion) is split by the model's
@@ -7,18 +7,18 @@ only the columns it touches, with per-block primal copies and duals, and a
 global consensus average.  The reference factors one sparse LU per block and
 solves the blocks in a *serial* Python loop (``ADMMBlocks.py:268-284``).
 
-TPU-native redesign:
+Device redesign:
 
 * every block's subproblem is reduced by Schur complement to its SPD
   ``A_b A_bᵀ`` system, padded to a common ``(rows_max, cols_max)`` shape and
   **batched**: one ``vmap``-ed dense Cholesky factorization at setup, one
-  batched ``cho_solve`` + two batched matmuls per iteration — all MXU work,
-  every block in flight simultaneously;
+  batched ``cho_solve`` + two batched matmuls per iteration — every block
+  in flight simultaneously;
 * the consensus averaging is a segment scatter-add over the padded column
   index table (one dummy slot absorbs padding);
-* multi-chip: the block batch dimension shards over a ``jax.sharding.Mesh``
+* multi-device: the block batch dimension shards over a ``jax.sharding.Mesh``
   ("blocks" axis) with ``shard_map``; the consensus reduction becomes a
-  ``psum`` over ICI — the direct device-parallel realization of the
+  ``psum`` across devices — the direct device-parallel realization of the
   decomposition the reference only executes serially (SURVEY.md §5).
 """
 
@@ -32,12 +32,10 @@ import scipy.sparse
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..preconditioning import convert_to_standard_form_with_bounds
+from ..problem import HIGHEST
 from .base import (HostLoop, ToleranceStop, chunk_schedule,
                    emit_callback, to_np)
 
@@ -106,7 +104,7 @@ def _admm_blocks_chunk_sharded(data, state, mesh: Mesh, nsteps: int):
     sharded over the mesh axis with shard_map, each device solves its own
     blocks (batched Cholesky) and scatter-adds into a device-local
     consensus accumulator, and ONE ``psum`` per iteration merges the
-    consensus sums over ICI — the auditable realization of the docstring's
+    consensus sums across devices — the auditable realization of the docstring's
     contract (round-2 judge: the previous device_put+jit relied on
     GSPMD-inferred communication)."""
     axis = mesh.axis_names[0]
@@ -131,9 +129,9 @@ def _admm_blocks_chunk_sharded(data, state, mesh: Mesh, nsteps: int):
         n = c_ext.shape[0] - 1
 
         def solve_block_kkt(chol_b, a_b, y1_b, beq_b):
-            rhs = a_b @ y1_b - gamma * beq_b
+            rhs = jnp.matmul(a_b, y1_b, precision=HIGHEST) - gamma * beq_b
             nu = jax.scipy.linalg.cho_solve((chol_b, False), rhs)
-            return (y1_b - a_b.T @ nu) / gamma
+            return (y1_b - jnp.matmul(a_b.T, nu, precision=HIGHEST)) / gamma
 
         batched_solve = jax.vmap(solve_block_kkt)
 
@@ -165,7 +163,8 @@ def _admm_blocks_chunk_sharded(data, state, mesh: Mesh, nsteps: int):
             axis)
         r = (
             jnp.einsum("bmc,bc->bm", sub_a,
-                       jnp.take(xp, ids, axis=0) * col_mask)
+                       jnp.take(xp, ids, axis=0) * col_mask,
+                       precision=HIGHEST)
             - beq
         ) * row_mask
         metrics = dict(
@@ -191,9 +190,9 @@ def _admm_blocks_chunk(data, state, nsteps: int):
 
     def solve_block_kkt(chol_b, a_b, y1_b, beq_b):
         # Schur solve of [[γI, A_bᵀ],[A_b, 0]] [x;ν] = [y1; γ·beq·?]: see admm.py
-        rhs = a_b @ y1_b - gamma * beq_b
+        rhs = jnp.matmul(a_b, y1_b, precision=HIGHEST) - gamma * beq_b
         nu = jax.scipy.linalg.cho_solve((chol_b, False), rhs)
-        return (y1_b - a_b.T @ nu) / gamma
+        return (y1_b - jnp.matmul(a_b.T, nu, precision=HIGHEST)) / gamma
 
     batched_solve = jax.vmap(solve_block_kkt)
 
@@ -226,7 +225,8 @@ def _admm_blocks_chunk(data, state, nsteps: int):
     )
     # residual of the original equalities at the consensus point
     r = (
-        jnp.einsum("bmc,bc->bm", sub_a, jnp.take(xp, ids, axis=0) * col_mask)
+        jnp.einsum("bmc,bc->bm", sub_a, jnp.take(xp, ids, axis=0) * col_mask,
+                   precision=HIGHEST)
         - beq
     ) * row_mask
     metrics = dict(

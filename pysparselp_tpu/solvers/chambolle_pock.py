@@ -1,14 +1,16 @@
-"""Diagonally-preconditioned Chambolle–Pock primal-dual LP solver on TPU.
+"""Diagonally-preconditioned Chambolle–Pock primal-dual LP solver in JAX.
 
 Same algorithm as the reference's flagship first-order solver
 (``pysparselp/ChambollePockPPD.py:36-346``; Pock & Chambolle, ICCV'11
 "Diagonal preconditioning for first order primal-dual algorithms"), rebuilt
-TPU-first: the hot loop — two transpose-SpMVs, a box-projected primal step,
-over-relaxation, two SpMVs and the dual ascent — is a single fused
+for an accelerator: the hot loop — two transpose-SpMVs, a box-projected
+primal step, over-relaxation, two SpMVs and the dual ascent — is a single
 ``lax.fori_loop`` body compiled once per problem shape.  SpMVs run on the
 auto-selected operator backend (:func:`~pysparselp_tpu.problem.ell_from_scipy`:
-MXU dense / Pallas block-ELL / DIA shifts / gather-ELL); metrics are
-evaluated on device once per ``nb_iter_plot`` chunk.
+dense / DIA shifts / partition / block-ELL / column-split composites /
+gather-ELL); metrics are evaluated on device once per ``nb_iter_plot``
+chunk.  Small dense LPs on a GPU run whole chunks in one Pallas kernel
+(:mod:`~pysparselp_tpu.ops.cp_dense_triton`).
 
 Beyond the reference, an opt-in PDLP-style acceleration (primal weight +
 adaptive restart-to-average, Applegate et al. 2021) runs as a
@@ -25,12 +27,19 @@ import scipy.sparse
 import jax
 import jax.numpy as jnp
 
-from ..problem import (DIA_AUTO_MAX_OFFSETS, LPProblem, aligned_offset_count,
-                       anchor_align, apply_align_embedding,
-                       apply_rcm_permutation, default_dtype, dia_cost_bytes,
-                       dispatch_iteration_cap, effective_stream_bytes,
-                       ell_from_scipy, rcm_permutation)
+from ..problem import (DENSE_SMALL_MAX_ENTRIES, DIA_AUTO_MAX_OFFSETS,
+                       LPProblem, aligned_offset_count, anchor_align,
+                       apply_align_embedding, apply_rcm_permutation,
+                       default_dtype, effective_stream_bytes, ell_from_scipy,
+                       embed_matrix, rcm_permutation)
+from ..ops.cp_dense_triton import (cp_dense_fused_call,
+                                   cp_dense_fused_chunk,
+                                   cp_dense_fused_eligible)
 from .base import HostLoop, chunk_schedule, emit_callback, to_np
+
+# what the last single-device solve ran: the layout presolve's choice, the
+# operator backend of each system and whether the fused dense kernel ran
+last_plan = None
 
 
 def _fold_one_sided(a_ineq, b_lower, b_upper):
@@ -59,8 +68,8 @@ def host_preconditioners(a_eq, a_ineq, alpha=1.0, omega=1.0):
     ``T_jj = omega / sum_i |a_ij|^(2-alpha)``,
     ``Sigma_ii = 1 / (omega * sum_j |a_ij|^alpha)`` per system.
     Returns ``(diag_t, sigma_eq, sigma_ineq)`` numpy arrays (sigmas are
-    ``None`` for absent systems).  Shared by the batched solver and the
-    position-sharded builder — the device driver computes the same
+    ``None`` for absent systems).  Shared by the batched and the
+    row-sharded builders — the device driver computes the same
     quantities with operator ops."""
     n = (a_eq if a_eq is not None else a_ineq).shape[1]
     col_sum = np.zeros(n)
@@ -158,17 +167,6 @@ def cp_chunk_impl(prob: LPProblem, pre, state, nsteps: int):
 _cp_chunk = functools.partial(jax.jit, static_argnames=("nsteps",))(cp_chunk_impl)
 
 
-def _ineq_fused_call(use_fused):
-    """The ineq-only fused chunk implementation for a `use_fused` regime
-    ((prob, pre, x, y, nsteps, theta_f, interpret, with_sums) contract);
-    the windowed regime uses the full eq+ineq contract instead
-    (``ops.cp_windowed._cp_windowed_call_full``)."""
-    assert use_fused == "dia", use_fused
-    from ..ops.cp_fused import _cp_fused_call
-
-    return _cp_fused_call
-
-
 def _scale_pre(pre, omega):
     """Apply the primal weight to the diagonal step sizes (τσ invariant)."""
     out = dict(pre)
@@ -181,17 +179,18 @@ def _scale_pre(pre, omega):
 
 
 @functools.partial(jax.jit, static_argnames=("nsteps", "period",
-                                             "use_fused", "theta_f"))
+                                             "use_fused", "theta_f",
+                                             "interpret"))
 def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
                              period: int, use_fused=None,
-                             theta_f: float = 1.0):
+                             theta_f: float = 1.0, interpret=False):
     """Device-resident restart controller: runs ``nsteps`` iterations with a
     PDLP restart check every ``period`` iterations entirely on device (one
     dispatch per chunk, no host synchronization for scores or the
     primal-weight update).  ``rstate`` carries the solver state plus the
     controller scalars (ω, score at last restart, last candidate score) and
-    the last restart point.  Semantics match the host controller in
-    :func:`chambolle_pock_ppd` when ``period == nb_iter_plot``."""
+    the last restart point.  ``use_fused="dense"`` runs each period in the
+    dense Triton kernel (``interpret`` selects the Pallas interpreter)."""
     beta_suf, beta_nec = 0.2, 0.8
     nblocks = max(nsteps // period, 0)
     rem = nsteps - nblocks * period
@@ -199,33 +198,12 @@ def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
     def run_block(rs):
         state = rs["state"]
         pre = _scale_pre(pre_base, rs["omega"])
-        if use_fused == "dia":
-            # whole-period fused kernel (ops/cp_fused VMEM-resident):
-            # iterations that also accumulate the running sums the
-            # restart-to-average controller consumes — ineq-only contract
-            call = _ineq_fused_call(use_fused)
-            x_n, x3_n, y_n, sx, si = call(
-                prob, pre, state[0], state[3], period, theta_f,
-                interpret=jax.default_backend() != "tpu", with_sums=True)
-            state = (x_n, x3_n, state[2], y_n)
-            se = jnp.zeros_like(state[2])
-        elif use_fused == "windowed":
-            # row-windowed whole-iteration kernel (ops/cp_windowed):
-            # full eq+ineq contract (se is empty when the problem has no
-            # equality system, matching the unfused branch's sums)
-            from ..ops.cp_windowed import _cp_windowed_call_full
-
-            x_n, x3_n, ye_n, yi_n, sx, se, si = _cp_windowed_call_full(
+        if use_fused == "dense":
+            # whole-period dense kernel (ops/cp_dense_triton): iterations
+            # that also accumulate the running sums the controller consumes
+            x_n, x3_n, ye_n, yi_n, sx, se, si = cp_dense_fused_call(
                 prob, pre, state[0], state[2], state[3], period, theta_f,
-                interpret=jax.default_backend() != "tpu", with_sums=True)
-            state = (x_n, x3_n,
-                     ye_n if prob.a_eq is not None else state[2], yi_n)
-        elif use_fused == "dense":
-            from ..ops.cp_fused import _cp_dense_fused_call
-
-            x_n, x3_n, ye_n, yi_n, sx, se, si = _cp_dense_fused_call(
-                prob, pre, state[0], state[2], state[3], period, theta_f,
-                interpret=jax.default_backend() != "tpu", with_sums=True)
+                interpret=interpret, with_sums=True)
             state = (x_n, x3_n, ye_n, yi_n)
         else:
             sums = (jnp.zeros_like(state[0]), jnp.zeros_like(state[2]),
@@ -284,29 +262,10 @@ def _cp_chunk_restart_device(prob: LPProblem, pre_base, rstate, nsteps: int,
                                rstate)
     if rem:
         pre = _scale_pre(pre_base, rstate["omega"])
-        if use_fused == "dia":
+        if use_fused == "dense":
             s = rstate["state"]
-            x_n, x3_n, y_n = _ineq_fused_call(use_fused)(
-                prob, pre, s[0], s[3], rem, theta_f,
-                interpret=jax.default_backend() != "tpu")
-            state = (x_n, x3_n, s[2], y_n)
-        elif use_fused == "windowed":
-            from ..ops.cp_windowed import _cp_windowed_call_full
-
-            s = rstate["state"]
-            x_n, x3_n, ye_n, yi_n = _cp_windowed_call_full(
-                prob, pre, s[0], s[2], s[3], rem, theta_f,
-                interpret=jax.default_backend() != "tpu")
-            state = (x_n, x3_n,
-                     ye_n if prob.a_eq is not None else s[2], yi_n)
-        elif use_fused == "dense":
-            from ..ops.cp_fused import _cp_dense_fused_call
-
-            s = rstate["state"]
-            x_n, x3_n, ye_n, yi_n = _cp_dense_fused_call(
-                prob, pre, s[0], s[2], s[3], rem, theta_f,
-                interpret=jax.default_backend() != "tpu")
-            state = (x_n, x3_n, ye_n, yi_n)
+            state = cp_dense_fused_call(prob, pre, s[0], s[2], s[3], rem,
+                                        theta_f, interpret=interpret)
         else:
             state = jax.lax.fori_loop(
                 0, rem, lambda _, s: _cp_iteration(prob, pre, s),
@@ -370,10 +329,12 @@ def _choose_layout(mats, dtype):
     Returns ``(choice, align_plan)`` — the anchor-alignment position plan
     is computed once here and reused by the caller when "align" wins
     (the alignment is O(nnz log nnz) host work; don't pay it twice).
+    Systems small enough to lower dense keep their order: a permutation
+    cannot help a launch-bound dense operator.
     """
-    import ml_dtypes
-
     live = [m for m in mats if m is not None]
+    if all(m.shape[0] * m.shape[1] <= DENSE_SMALL_MAX_ENTRIES for m in live):
+        return None, None
     candidates = {}
 
     def total(parts, dt):
@@ -396,31 +357,64 @@ def _choose_layout(mats, dtype):
 
     plan = None
     try:
-        counts, m_new, n_new, spans, plan = aligned_offset_count(
-            mats, return_plan=True, return_spans=True)
+        counts, m_new, n_new, plan = aligned_offset_count(
+            mats, return_plan=True)
     except ValueError:
         counts = None
     if counts is not None and all(
         0 < c_ <= DIA_AUTO_MAX_OFFSETS for c_, m in zip(counts, mats)
         if m is not None
     ):
-        bytes_align = 0
-        for m, c_, mn, span in zip(mats, counts, m_new, spans):
-            if m is None:
-                continue
-            d32 = m.tocsr().data.astype(np.float32)
-            exact = bool(np.all(
-                d32.astype(ml_dtypes.bfloat16).astype(np.float32) == d32))
-            itemsize = 2 if (dtype == jnp.float32 and exact) else 4
-            # real offset spans from the alignment preview: the eligibility
-            # probe inside dia_cost_bytes sizes the kernel's x buffer from
-            # the spread (advisor r2: dummy offsets priced the fused regime
-            # for operators that would lower to the windowed/XLA regimes)
-            bytes_align += dia_cost_bytes(c_, mn, n_new, itemsize, dtype,
-                                          offsets=span)
-        candidates["align"] = bytes_align
+        # price the embedded systems with the same selector the lowering
+        # runs (the alignment pads rows and columns)
+        rows, col_pos, _m_new, n_new = plan
+        candidates["align"] = total(
+            [embed_matrix(m, r, col_pos, mn, n_new)
+             for m, r, mn in zip(mats, rows, m_new) if m is not None],
+            dtype)
     best = min(candidates, key=candidates.get)
     return best, (plan if best == "align" else None)
+
+
+def build_cp_problem(c, a_eq, beq, a_one, b_ineq, lb, ub, dtype, alpha=1.0,
+                     theta=1.0, lower=None):
+    """Lower a one-sided LP (``a_eq x = beq``, ``a_one x <= b_ineq``,
+    ``lb <= x <= ub``; absent systems are None) to ``(LPProblem, pre)``:
+    each system through ``lower`` (the auto-selector by default) and the
+    diagonal preconditioners (``ChambollePockPPD.py:122-179``):
+    ``T_jj = 1 / sum_i |a_ij|^{2-alpha}``,
+    ``Σ_ii = 1 / sum_j |a_ij|^{alpha}``."""
+    n = np.asarray(c).size
+    lower = lower or ell_from_scipy
+    eq_m = lower(a_eq, dtype=dtype) if a_eq is not None else None
+    in_m = lower(a_one, dtype=dtype) if a_one is not None else None
+    prob = LPProblem(
+        c=jnp.asarray(c, dtype),
+        lb=jnp.asarray(lb, dtype),
+        ub=jnp.asarray(ub, dtype),
+        a_eq=eq_m,
+        b_eq=jnp.asarray(beq, dtype) if a_eq is not None else None,
+        a_ineq=in_m,
+        b_lower=None,
+        b_upper=jnp.asarray(b_ineq, dtype) if in_m is not None else None,
+        n=n,
+        m_eq=eq_m.nrows if eq_m is not None else 0,
+        m_ineq=in_m.nrows if in_m is not None else 0,
+    )
+    col_sum = jnp.zeros(n, dtype)
+    if eq_m is not None:
+        col_sum = col_sum + eq_m.abs_power_colsum(2.0 - alpha)
+    if in_m is not None:
+        col_sum = col_sum + in_m.abs_power_colsum(2.0 - alpha)
+    diag_t = 1.0 / jnp.where(col_sum == 0, 1.0, col_sum)
+    pre = dict(diag_t=diag_t, theta=jnp.asarray(theta, dtype))
+    if eq_m is not None:
+        rs = eq_m.abs_power_rowsum(alpha)
+        pre["sigma_eq"] = 1.0 / jnp.where(rs == 0, 1.0, rs)
+    if in_m is not None:
+        rs = in_m.abs_power_rowsum(alpha)
+        pre["sigma_ineq"] = 1.0 / jnp.where(rs == 0, 1.0, rs)
+    return prob, pre
 
 
 def chambolle_pock_ppd(
@@ -492,27 +486,26 @@ def chambolle_pock_ppd(
     lb = np.asarray(lb, np.float64)
     ub = np.asarray(ub, np.float64)
 
-    # Layout presolve (TPU only): re-ordering rows/columns ONCE at lowering
-    # changes which operator backend wins, at zero per-iteration cost.  Two
+    # Layout presolve: re-ordering rows/columns ONCE at lowering changes
+    # which operator backend wins, at zero per-iteration cost.  Two
     # candidate layouts are costed against the unpermuted matrix with the
     # shared bytes-streamed model (problem.estimate_stream_bytes):
     #
     # * "rcm"   — reverse Cuthill-McKee bandwidth reduction: clusters the
-    #   nonzeros into dense tiles for the Pallas block-ELL backend;
+    #   nonzeros into dense tiles for the block-ELL backend;
     # * "align" — anchor-aligned embedding (problem.anchor_align): collapses
     #   template-structured LPs (image grids: Potts) onto a handful of exact
-    #   diagonals for the fused Pallas DIA kernel (Potts-50: 17 diagonals
-    #   vs 107 raw / 2412 after RCM).
+    #   diagonals for the shift DIA operator (Potts-50: 17 diagonals vs 107
+    #   raw / 2412 after RCM).
     #
     # The primal-weight estimate uses the ORIGINAL rhs (the aligned
     # embedding pads b with a large sentinel that must not enter medians).
     if omega == "auto":
         omega = estimate_omega(c, beq if a_eq is not None else None,
                                b_ineq if a_one is not None else None)
-    if permute == "auto":
-        permute = "auto" if jax.default_backend() == "tpu" else False
     if permute is True:
         permute = "rcm"
+    layout = None
     inv_cols = None          # orig col -> solved position (gather for x)
     pos_eq = pos_in = None   # orig row -> solved position (per system)
     if permute and (a_eq is not None or a_one is not None):
@@ -525,6 +518,7 @@ def chambolle_pock_ppd(
                    c=c, lb=lb, ub=ub, x0=x0, x30=x30,
                    y_eq0=y_eq0, y_ineq0=y_ineq0)
         col_pos = None
+        layout = choice
         if choice == "align":
             plan = (align_plan if align_plan is not None
                     else anchor_align(mats))
@@ -564,40 +558,11 @@ def chambolle_pock_ppd(
         x[c < 0] = ub[c < 0]
         return x, None
 
-    eq_m = ell_from_scipy(a_eq, dtype=dtype) if a_eq is not None else None
-    in_m = ell_from_scipy(a_one, dtype=dtype) if a_one is not None else None
-    prob = LPProblem(
-        c=jnp.asarray(c, dtype),
-        lb=jnp.asarray(lb, dtype),
-        ub=jnp.asarray(ub, dtype),
-        a_eq=eq_m,
-        b_eq=jnp.asarray(beq, dtype) if a_eq is not None else None,
-        a_ineq=in_m,
-        b_lower=None,
-        b_upper=jnp.asarray(b_ineq, dtype) if in_m is not None else None,
-        n=n,
-        m_eq=eq_m.nrows if eq_m is not None else 0,
-        m_ineq=in_m.nrows if in_m is not None else 0,
-    )
-
-    # diagonal preconditioners (``ChambollePockPPD.py:122-179``):
-    #   T_jj = 1 / sum_i |a_ij|^{2-alpha},  Σ_ii = 1 / sum_j |a_ij|^{alpha}
+    prob, pre = build_cp_problem(c, a_eq, beq, a_one, b_ineq, lb, ub, dtype,
+                                 alpha=alpha, theta=theta)
+    eq_m, in_m = prob.a_eq, prob.a_ineq
     # (omega="auto" was resolved before the layout presolve)
     omega = float(omega) if omega is not None else 1.0
-
-    col_sum = jnp.zeros(n, dtype)
-    if eq_m is not None:
-        col_sum = col_sum + eq_m.abs_power_colsum(2.0 - alpha)
-    if in_m is not None:
-        col_sum = col_sum + in_m.abs_power_colsum(2.0 - alpha)
-    diag_t = 1.0 / jnp.where(col_sum == 0, 1.0, col_sum)
-    pre = dict(diag_t=diag_t, theta=jnp.asarray(theta, dtype))
-    if eq_m is not None:
-        rs = eq_m.abs_power_rowsum(alpha)
-        pre["sigma_eq"] = 1.0 / jnp.where(rs == 0, 1.0, rs)
-    if in_m is not None:
-        rs = in_m.abs_power_rowsum(alpha)
-        pre["sigma_ineq"] = 1.0 / jnp.where(rs == 0, 1.0, rs)
     pre_eff = _scale_pre(pre, omega) if omega != 1.0 else pre
 
     x = jnp.asarray(x0 if x0 is not None else np.zeros(n), dtype)
@@ -652,61 +617,29 @@ def chambolle_pock_ppd(
             "zineq": state[3],
         }
 
-    # bound the iteration count fused into one dispatch (problem-size aware;
-    # multi-second device programs can trip the remote-worker watchdog)
-    cap = dispatch_iteration_cap(prob.a_eq, prob.a_ineq)
-    if restart == "average" and period > cap:
-        # a restart check needs >= period iterations in one dispatch, so
-        # the duration cap must bound the period itself, not just chunks
-        period = cap
-    # whole-iteration fused kernels (ops/cp_fused): the entire problem
-    # stays VMEM-resident across a chunk — zero HBM traffic per iteration.
-    # "dia": ineq-only DIA problems (the anchor-aligned grid-LP class);
-    # "dense": small/medium eq+ineq systems on dense MXU operators (the
-    # netlib class, where per-op dispatch otherwise dominates).
-    from ..ops.cp_fused import (cp_dense_fused_chunk,
-                                cp_dense_fused_eligible, cp_fused_chunk,
-                                cp_fused_eligible)
-    from ..ops.cp_windowed import cp_windowed_chunk, cp_windowed_eligible
-
-    if cp_fused_eligible(prob, dtype):
-        use_fused = "dia"
-    elif cp_dense_fused_eligible(prob, dtype):
-        use_fused = "dense"
-    elif cp_windowed_eligible(prob, dtype):
-        # beyond the fully-fused VMEM budget: windowed whole-iteration
-        # kernel (ops/cp_windowed) — every input read once per iteration
-        use_fused = "windowed"
-    else:
-        use_fused = None
+    # small dense LPs (the netlib class) on a GPU: whole chunks in one
+    # Pallas kernel — the XLA iteration there is a dozen tiny launches
+    use_fused = ("dense" if cp_dense_fused_eligible(prob)
+                 and jax.default_backend() == "gpu" else None)
+    global last_plan
+    last_plan = {
+        "layout": layout,
+        "eq": type(eq_m).__name__ if eq_m is not None else None,
+        "ineq": type(in_m).__name__ if in_m is not None else None,
+        "fused": use_fused,
+    }
     for nsteps in chunk_schedule(nb_max_iter, nb_iter_plot):
         if restart == "average":
-            cap_r = max(period, cap // period * period)
-            done = 0
-            while done < nsteps:
-                sub = min(cap_r, nsteps - done)
-                rstate, metrics = _cp_chunk_restart_device(
-                    prob, pre, rstate, sub, period,
-                    use_fused=use_fused, theta_f=float(theta),
-                )
-                done += sub
+            rstate, metrics = _cp_chunk_restart_device(
+                prob, pre, rstate, nsteps, period,
+                use_fused=use_fused, theta_f=float(theta),
+            )
             state = rstate["state"]
         elif use_fused:
-            chunk_fn = {"dia": cp_fused_chunk,
-                        "dense": cp_dense_fused_chunk,
-                        "windowed": cp_windowed_chunk}[use_fused]
-            done = 0
-            while done < nsteps:
-                sub = min(cap, nsteps - done)
-                state = chunk_fn(prob, pre_eff, state, sub, theta)
-                done += sub
+            state = cp_dense_fused_chunk(prob, pre_eff, state, nsteps, theta)
             _, metrics = _cp_chunk(prob, pre_eff, state, 0)
         else:
-            done = 0
-            while done < nsteps:
-                sub = min(cap, nsteps - done)
-                state, metrics = _cp_chunk(prob, pre_eff, state, sub)
-                done += sub
+            state, metrics = _cp_chunk(prob, pre_eff, state, nsteps)
         niter += nsteps
         if force_integer and bool(metrics["rounded_feasible"]):
             er = float(metrics["energy_rounded"])

@@ -1,4 +1,4 @@
-"""Mehrotra predictor-corrector primal-dual interior point method on TPU.
+"""Mehrotra predictor-corrector primal-dual interior point method in JAX.
 
 Reference: ``pysparselp/MehrotraPDIP.py:18-215`` (Mehrotra '92, via the
 YimingYAN/mpc Matlab port) on standard form ``min cᵀx, A x = b, x ≥ 0``.
@@ -10,8 +10,8 @@ one: eliminating dx gives the SPD *normal equations*
 
     (A D Aᵀ) dy = -r_b - A(D r_c) + A(r_xs / s),      D = diag(x/s)
 
-which this solver factors once per outer iteration as a **dense Cholesky on
-the MXU** (the classic normal-equations IPM formulation — what LIPSOL-style
+which this solver factors once per outer iteration as a **dense Cholesky**
+(the classic normal-equations IPM formulation — what LIPSOL-style
 codes do on accelerators).  Predictor and corrector share the factorization,
 exactly mirroring the reference's LU reuse.  For problems whose row count
 exceeds the dense threshold the solve falls back to Jacobi-preconditioned CG
@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.cg import conjgrad
-from ..problem import default_dtype, ell_from_scipy
+from ..problem import HIGHEST, default_dtype, ell_from_scipy
 from .base import to_np
 
 
@@ -54,10 +54,12 @@ def _ipm_iteration(data, x, y, s, theta, ridge_boost, use_dense: bool):
     n = x.shape[0]
 
     def matvec(v):
-        return a_dense @ v if use_dense else ell.matvec(v)
+        return (jnp.matmul(a_dense, v, precision=HIGHEST) if use_dense
+                else ell.matvec(v))
 
     def rmatvec(v):
-        return a_dense.T @ v if use_dense else ell.rmatvec(v)
+        return (jnp.matmul(a_dense.T, v, precision=HIGHEST) if use_dense
+                else ell.rmatvec(v))
 
     r_b = matvec(x) - b
     r_c = rmatvec(y) + s - c
@@ -67,7 +69,7 @@ def _ipm_iteration(data, x, y, s, theta, ridge_boost, use_dense: bool):
     d = jnp.clip(x / jnp.maximum(s, 1e-300), 1e-12, 1e12)
 
     if use_dense:
-        m = (a_dense * d[None, :]) @ a_dense.T
+        m = jnp.matmul(a_dense * d[None, :], a_dense.T, precision=HIGHEST)
         # ridge scaled with the diagonal keeps the Cholesky stable as
         # complementarity drives cond(A D Aᵀ) → ∞ near convergence; the host
         # raises ridge_boost and retries when a step still comes out non-finite
@@ -79,7 +81,8 @@ def _ipm_iteration(data, x, y, s, theta, ridge_boost, use_dense: bool):
             # one step of iterative refinement recovers accuracy lost to the
             # ridge and to the ill-conditioned terminal Cholesky
             dy = jax.scipy.linalg.cho_solve(chol, rhs)
-            dy = dy + jax.scipy.linalg.cho_solve(chol, rhs - m @ dy)
+            dy = dy + jax.scipy.linalg.cho_solve(
+                chol, rhs - jnp.matmul(m, dy, precision=HIGHEST))
             return dy
     else:
         ridge = data["ridge"] * ridge_boost
@@ -161,13 +164,15 @@ def _initial_point(data, use_dense: bool):
     n = c.shape[0]
 
     def matvec(v):
-        return a_dense @ v if use_dense else ell.matvec(v)
+        return (jnp.matmul(a_dense, v, precision=HIGHEST) if use_dense
+                else ell.matvec(v))
 
     def rmatvec(v):
-        return a_dense.T @ v if use_dense else ell.rmatvec(v)
+        return (jnp.matmul(a_dense.T, v, precision=HIGHEST) if use_dense
+                else ell.rmatvec(v))
 
     if use_dense:
-        aat = a_dense @ a_dense.T
+        aat = jnp.matmul(a_dense, a_dense.T, precision=HIGHEST)
         aat = aat + data["ridge"] * jnp.eye(aat.shape[0], dtype=aat.dtype)
         chol = jax.scipy.linalg.cho_factor(aat, lower=False)
 
@@ -220,7 +225,7 @@ def mpc_sol(
         warnings.warn(
             "mehrotra (interior point) needs float64 arithmetic to drive "
             "the barrier parameter below ~1e-8; running in "
-            f"{jnp.dtype(dtype).name} (the TPU default) will stall at a "
+            f"{jnp.dtype(dtype).name} (the float32 default) will stall at a "
             "coarse tolerance. Enable jax_enable_x64 and pass "
             "dtype=np.float64, or use a first-order method in float32.",
             stacklevel=2,

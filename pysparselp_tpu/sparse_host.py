@@ -5,7 +5,7 @@ in place with a bolted-on ``blocks`` attribute (reference:
 ``pysparselp/SparseLP.py:75-112``).  Here the same capability is provided by a
 small immutable-ish container, :class:`BlockedCSR`, that records every appended
 batch of rows as a *block*.  Blocks are the structural metadata consumed by the
-block-decomposition ADMM solver and by the TPU lowering (each block becomes a
+block-decomposition ADMM solver and by the device lowering (each block becomes a
 shardable unit of rows).
 
 Nothing in this module touches JAX: it is the pure-numpy host layer, designed

@@ -3,7 +3,7 @@
 The reference's single-threaded design needs no race detection; its sanity
 layer is asserts sprinkled through the code (``check_csr_matrix``
 ``SparseLP.py:86-91``, pyamg level finiteness ``ADMM.py:388-390``,
-``CheckDecrease`` ``tools.py:47-59``).  The TPU equivalent (SURVEY.md §5) is
+``CheckDecrease`` ``tools.py:47-59``).  The device equivalent (SURVEY.md §5) is
 JAX's traced-computation checks: NaN trapping inside jitted loops plus
 host-side finiteness asserts at chunk boundaries.
 """

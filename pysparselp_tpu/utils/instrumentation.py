@@ -1,6 +1,6 @@
 """Observability helpers: solution statistics, call capture, profiling.
 
-TPU-native equivalents of the reference's instrumentation layer
+Device-side equivalents of the reference's instrumentation layer
 (``pysparselp/tools.py:173-269`` — ``SolutionStat``, ``save_arguments`` —
 and the ad-hoc per-loop prints): a callback-protocol statistics tracker, a
 pickle-based repro capture, and a ``jax.profiler`` trace context for real
@@ -125,7 +125,7 @@ def load_arguments(filename) -> dict:
 def profile_trace(log_dir=None, enabled=True):
     """Capture a ``jax.profiler`` device trace around a solver run.
 
-    The TPU replacement for the reference's host-side ``Chrono`` tic/tocs
+    The device replacement for the reference's host-side ``Chrono`` tic/tocs
     (``tools.py:34-44``, ``ADMM.py:110-113``): wall-clock around a dispatch
     measures nothing on an async device — a profiler trace shows the real
     kernel timeline.  View with TensorBoard or Perfetto.

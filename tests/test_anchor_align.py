@@ -86,29 +86,3 @@ def test_choose_layout_runs(potts20):
     # the alignment plan is returned alongside so "align" is applied
     # without re-running the O(nnz log nnz) embedding
     assert (plan is not None) == (choice == "align")
-
-
-def test_dispatch_cap_splitting_preserves_trajectory(potts20, monkeypatch):
-    """Sub-dispatch chunking (the >1s-dispatch guard) must not change the
-    iterate sequence — same math, different program boundaries."""
-    import pysparselp_tpu.problem as pm
-    from pysparselp_tpu.solvers.chambolle_pock import chambolle_pock_ppd
-
-    lp = potts20
-    args = (lp.costsvector, None, None, lp.a_inequalities.tocsr(),
-            lp.b_lower, lp.b_upper, lp.lower_bounds, lp.upper_bounds)
-    kw = dict(nb_max_iter=800, nb_iter_plot=800, dtype=np.float64)
-    x_ref, _ = chambolle_pock_ppd(*args, **kw)
-    # floor cap = 200 < nb_iter_plot: the 800-iteration chunk must split
-    # into 4 sub-dispatches with an identical trajectory
-    monkeypatch.setattr(pm, "DISPATCH_BUDGET_BYTES", 1.0)
-    x_cap, _ = chambolle_pock_ppd(*args, **kw)
-    np.testing.assert_allclose(x_cap, x_ref, atol=0)
-
-    # and through the restart controller (cap rounds to the period)
-    kw2 = dict(kw, nb_iter_plot=400, restart="average", restart_period=100)
-    monkeypatch.setattr(pm, "DISPATCH_BUDGET_BYTES", 6e11)
-    x_r, _ = chambolle_pock_ppd(*args, **kw2)
-    monkeypatch.setattr(pm, "DISPATCH_BUDGET_BYTES", 1.0)
-    x_rc, _ = chambolle_pock_ppd(*args, **kw2)
-    np.testing.assert_allclose(x_rc, x_r, atol=0)

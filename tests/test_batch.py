@@ -126,14 +126,14 @@ def test_batch_validation_errors():
 def test_lower_xla_backend_choice():
     import scipy.sparse
 
-    from pysparselp_tpu.batch import XlaDiaMatrix
+    from pysparselp_tpu.problem import DiaMatrix
 
     small = scipy.sparse.random(20, 30, density=0.2, random_state=0,
                                 format="csr")
     assert isinstance(_lower_xla(small, jnp.float64), DenseMatrix)
     banded = scipy.sparse.diags(
         [np.ones(9_000_000), np.ones(9_000_000 - 3)], [0, -3]).tocsr()
-    assert isinstance(_lower_xla(banded, jnp.float64), XlaDiaMatrix)
+    assert isinstance(_lower_xla(banded, jnp.float64), DiaMatrix)
     rng = np.random.RandomState(0)
     scattered = scipy.sparse.random(20000, 20000, density=5e-4,
                                     random_state=rng, format="csr")
@@ -143,14 +143,14 @@ def test_lower_xla_backend_choice():
 def test_xla_dia_matvec_parity():
     import scipy.sparse
 
-    from pysparselp_tpu.batch import XlaDiaMatrix
+    from pysparselp_tpu.problem import DiaMatrix
 
     rng = np.random.RandomState(4)
     m, n = 60, 75
     a = scipy.sparse.diags(
         [rng.randn(min(m, n)), rng.randn(min(m, n - 5)),
          rng.randn(min(m - 2, n))], [0, 5, -2], shape=(m, n)).tocsr()
-    op = XlaDiaMatrix.from_scipy(a, jnp.float64)
+    op = DiaMatrix.from_scipy(a, jnp.float64)
     x = rng.randn(n)
     y = rng.randn(m)
     np.testing.assert_allclose(np.asarray(op.matvec(jnp.asarray(x))),
@@ -222,8 +222,7 @@ def test_lower_xla_partition_and_colsplit():
     a = (labeling + hot).tocsr()
     op2 = _lower_xla(a, jnp.float64)
     assert isinstance(op2, ColBlockMatrix)
-    assert all(not type(b).__name__.startswith(("Bsr", "Dia", "Routed"))
-               or type(b).__name__ == "XlaDiaMatrix"
+    assert all(not type(b).__name__.startswith("Bsr")
                for b in op2.blocks), [type(b).__name__ for b in op2.blocks]
     x = rng.randn(npts + nc)
     np.testing.assert_allclose(np.asarray(op2.matvec(jnp.asarray(x))),

@@ -50,7 +50,8 @@ def test_transport_lp_matches_baseline_provenance():
 
 
 def test_banded_lp_is_deterministic_and_xla_dia_eligible():
-    from pysparselp_tpu.batch import _lower_xla, XlaDiaMatrix
+    from pysparselp_tpu.batch import _lower_xla
+    from pysparselp_tpu.problem import DiaMatrix
     import jax.numpy as jnp
 
     lp = bench._banded_lp(n=4_096)
@@ -61,11 +62,11 @@ def test_banded_lp_is_deterministic_and_xla_dia_eligible():
     # the full-size system routes to the shift-loop DIA operator (the
     # 4k test build is below the dense threshold, so check the operator
     # directly rather than the auto route)
-    op = XlaDiaMatrix.from_scipy(a, jnp.float64)
+    op = DiaMatrix.from_scipy(a, jnp.float64)
     x = np.random.RandomState(1).rand(a.shape[1])
     assert np.allclose(np.asarray(op.matvec(x)), a @ x)
     assert len(op.offsets) == 4
-    # at bench scale the auto route picks XlaDiaMatrix: entries exceed
+    # at bench scale the auto route picks DiaMatrix: entries exceed
     # the dense cap and the offset count is 4
     from pysparselp_tpu.problem import DENSE_AUTO_MAX_ENTRIES
     assert 150_000 ** 2 > DENSE_AUTO_MAX_ENTRIES

@@ -1,8 +1,4 @@
-"""Block-ELL (Pallas) operator backend: correctness vs scipy.
-
-The Pallas kernel itself runs in interpreter mode off-TPU (same kernel code
-path the TPU compiles); the einsum reference path is tested separately.
-"""
+"""Block-ELL operator backend: correctness vs scipy."""
 
 import numpy as np
 import pytest
@@ -10,8 +6,7 @@ import scipy.sparse
 
 import jax.numpy as jnp
 
-from pysparselp_tpu.ops import bsr_pallas
-from pysparselp_tpu.ops.bsr_pallas import BsrMatrix, bsr_padded_entries
+from pysparselp_tpu.ops.bsr import BsrMatrix, bsr_padded_entries
 
 
 def _random_sparse(m, n, density, seed, clustered=False):
@@ -46,9 +41,8 @@ def test_bsr_matches_scipy_einsum_path(shape):
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (200, 300)])
-def test_bsr_pallas_kernel_interpret(shape, monkeypatch):
-    """The actual Pallas kernel (interpreted off-TPU) matches scipy."""
-    monkeypatch.setattr(bsr_pallas, "_FORCE_INTERPRET", True)
+def test_bsr_f32_default_tiles(shape):
+    """f32 at the default 64-wide tiles matches scipy."""
     m, n = shape
     a = _random_sparse(m, n, 0.05, seed=3)
     b = BsrMatrix.from_scipy(a, dtype=jnp.float32, tm=64, tn=64)
@@ -124,10 +118,9 @@ def test_bsr_solver_end_to_end():
     np.testing.assert_allclose(x_bsr, x_ell, atol=1e-9)
 
 
-def test_bsr_bf16_exact_storage(monkeypatch):
-    """f32 matrices with bf16-exact entries store bf16 tiles; the hi/lo
-    split keeps matvec at f32-grade accuracy."""
-    monkeypatch.setattr(bsr_pallas, "_FORCE_INTERPRET", True)
+def test_bsr_bf16_exact_storage():
+    """f32 matrices with bf16-exact entries store bf16 tiles; widening the
+    tiles before the contraction keeps matvec at f32-grade accuracy."""
     rng = np.random.RandomState(0)
     a = _random_sparse(200, 150, 0.05, seed=9)
     a.data = np.sign(a.data) * 0.5  # exactly representable

@@ -1,116 +1,81 @@
-"""Whole-iteration fused CP kernel: parity with the composed path."""
+"""Whole-chunk dense CP kernel (Pallas, Triton route) against the XLA
+iteration, in the Pallas interpreter."""
+
+import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
-import scipy.sparse
 
+import jax
 import jax.numpy as jnp
 
 from pysparselp_tpu import problem as pr
-from pysparselp_tpu.ops import cp_fused, dia_pallas
+from pysparselp_tpu.ops import cp_dense_triton as kern
+from pysparselp_tpu.solvers.chambolle_pock import (
+    _cp_chunk_restart_device, _fold_one_sided, _kkt_score, build_cp_problem,
+    cp_chunk_impl)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import bench  # noqa: E402
 
 
-@pytest.fixture(autouse=True)
-def _force_interpret(monkeypatch):
-    monkeypatch.setattr(cp_fused, "_FORCE_INTERPRET", True)
-    monkeypatch.setattr(dia_pallas, "_FORCE_INTERPRET", True)
-
-
-def _dia_problem(m, n, seed, dtype=jnp.float32):
+def _dense_problem(me, mi, n, seed):
     rng = np.random.RandomState(seed)
-    offs = np.array([-260, -128, -1, 0, 1, 5, 129, 260])
-    rows, cols, vals = [], [], []
-    for o in offs:
-        r = np.arange(max(0, -o), min(m, n - o))
-        keep = rng.rand(r.size) < 0.5
-        r = r[keep]
-        rows.append(r)
-        cols.append(r + o)
-        vals.append(rng.randn(r.size))
-    a = scipy.sparse.coo_matrix(
-        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
-        shape=(m, n)).tocsr()
-    dia = pr.DiaMatrix.from_scipy(a, dtype=dtype, allow_bf16=False)
+    f32 = jnp.float32
+    ae = rng.randn(me, n) * (rng.rand(me, n) < 0.4)
+    ai = rng.randn(mi, n) * (rng.rand(mi, n) < 0.4)
     x_feas = rng.rand(n)
-    b = a @ x_feas + 0.5
+
+    def dense(a):
+        return pr.DenseMatrix(a=jnp.asarray(a, f32), nrows=a.shape[0],
+                              ncols=n)
+
     prob = pr.LPProblem(
-        c=jnp.asarray(rng.randn(n), dtype),
-        lb=jnp.asarray(np.zeros(n), dtype),
-        ub=jnp.asarray(np.ones(n), dtype),
-        a_eq=None, b_eq=None,
-        a_ineq=dia,
-        b_lower=None,
-        b_upper=jnp.asarray(b, dtype),
-        n=n, m_eq=0, m_ineq=m,
+        c=jnp.asarray(rng.randn(n), f32),
+        lb=jnp.zeros(n, f32), ub=jnp.ones(n, f32),
+        a_eq=dense(ae) if me else None,
+        b_eq=jnp.asarray(ae @ x_feas, f32) if me else None,
+        a_ineq=dense(ai) if mi else None, b_lower=None,
+        b_upper=jnp.asarray(ai @ x_feas + 0.5, f32) if mi else None,
+        n=n, m_eq=me, m_ineq=mi,
     )
-    pre = dict(
-        diag_t=1.0 / jnp.maximum(dia.abs_power_colsum(1.0), 1e-9),
-        theta=jnp.asarray(1.0, dtype),
-        sigma_ineq=1.0 / jnp.maximum(dia.abs_power_rowsum(1.0), 1e-9),
-    )
+    col = jnp.zeros(n, f32)
+    pre = dict(theta=jnp.asarray(1.0, f32))
+    for op, key in ((prob.a_eq, "sigma_eq"), (prob.a_ineq, "sigma_ineq")):
+        if op is not None:
+            col = col + op.abs_power_colsum(1.0)
+            pre[key] = 1.0 / jnp.maximum(op.abs_power_rowsum(1.0), 1e-9)
+    pre["diag_t"] = 1.0 / jnp.maximum(col, 1e-9)
     return prob, pre
 
 
-def test_fused_chunk_matches_composed_iterations():
-    from pysparselp_tpu.solvers.chambolle_pock import cp_chunk_impl
-
-    prob, pre = _dia_problem(450, 400, seed=0)
+def _state(prob):
     x0 = jnp.zeros(prob.n, jnp.float32)
-    state = (x0, x0, jnp.zeros(0, jnp.float32),
-             jnp.zeros(prob.m_ineq, jnp.float32))
-    ref_state, ref_metrics = cp_chunk_impl(prob, pre, state, 7)
-    fused_state = cp_fused.cp_fused_chunk(prob, pre, state, 7, theta=1.0)
-    for a, b in zip(fused_state, ref_state):
+    return (x0, x0, jnp.zeros(prob.m_eq, jnp.float32),
+            jnp.zeros(prob.m_ineq, jnp.float32))
+
+
+def _assert_states_close(got, ref, tol):
+    for a, b in zip(got, ref):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-5)
+                                   rtol=tol, atol=tol)
 
 
-def test_fused_chunks_compose():
-    # two fused chunks of 3+4 equal one chunk of 7 (state continuity incl.
-    # the padded dual buffer round-trip)
-    prob, pre = _dia_problem(300, 330, seed=3)
-    x0 = jnp.zeros(prob.n, jnp.float32)
-    state = (x0, x0, jnp.zeros(0, jnp.float32),
-             jnp.zeros(prob.m_ineq, jnp.float32))
-    s7 = cp_fused.cp_fused_chunk(prob, pre, state, 7, theta=1.0)
-    s34 = cp_fused.cp_fused_chunk(
-        prob, pre, cp_fused.cp_fused_chunk(prob, pre, state, 3, theta=1.0),
-        4, theta=1.0)
-    for a, b in zip(s34, s7):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-5, atol=1e-6)
+def test_dense_fused_matches_composed():
+    prob, pre = _dense_problem(40, 90, 130, seed=2)
+    assert kern.cp_dense_fused_eligible(prob)
+    state = _state(prob)
+    ref_state, _ = cp_chunk_impl(prob, pre, state, 9)
+    fused_state = kern.cp_dense_fused_chunk(prob, pre, state, 9, theta=1.0,
+                                            interpret=True)
+    _assert_states_close(fused_state, ref_state, 2e-5)
 
 
-def test_eligibility_gating():
-    prob, pre = _dia_problem(300, 330, seed=5)
-    assert cp_fused.cp_fused_eligible(prob, jnp.float32)
-    # equality system present -> composed path
-    import dataclasses
-
-    prob_eq = dataclasses.replace(prob, a_eq=prob.a_ineq,
-                                  b_eq=prob.b_upper, m_eq=prob.m_ineq)
-    assert not cp_fused.cp_fused_eligible(prob_eq, jnp.float32)
-    # over-budget -> composed path
-    import pysparselp_tpu.ops.cp_fused as cf
-
-    old = cf.FUSED_VMEM_BUDGET
-    try:
-        cf.FUSED_VMEM_BUDGET = 10
-        assert not cp_fused.cp_fused_eligible(prob, jnp.float32)
-    finally:
-        cf.FUSED_VMEM_BUDGET = old
-
-
-def test_fused_restart_controller_matches_composed():
-    import jax.numpy as jnp
-
-    from pysparselp_tpu.solvers.chambolle_pock import (
-        _cp_chunk_restart_device, _kkt_score)
-
-    prob, pre = _dia_problem(280, 260, seed=9)
-    x0 = jnp.zeros(prob.n, jnp.float32)
-    state = (x0, x0, jnp.zeros(0, jnp.float32),
-             jnp.zeros(prob.m_ineq, jnp.float32))
+def test_dense_fused_restart_matches_composed():
+    prob, pre = _dense_problem(30, 70, 100, seed=8)
+    state = _state(prob)
     rstate = {
         "state": state,
         "omega": jnp.asarray(1.0, jnp.float32),
@@ -119,95 +84,116 @@ def test_fused_restart_controller_matches_composed():
         "mu_last": jnp.asarray(np.inf, jnp.float32),
         "zx": state[0], "zeq": state[2], "zineq": state[3],
     }
-    r_ref, m_ref = _cp_chunk_restart_device(prob, pre, rstate, 25, 10)
-    r_fused, m_fused = _cp_chunk_restart_device(
-        prob, pre, rstate, 25, 10, use_fused=True, theta_f=1.0)
-    for k in r_ref:
-        a, b = r_ref[k], r_fused[k]
-        if isinstance(a, tuple):
-            for ai, bi in zip(a, b):
-                np.testing.assert_allclose(np.asarray(bi), np.asarray(ai),
-                                           rtol=1e-5, atol=1e-5)
-        else:
-            np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                       rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(float(m_fused["energy1"]),
-                               float(m_ref["energy1"]), rtol=1e-4)
-
-
-def _dense_problem(me, mi, n, seed):
-    rng = np.random.RandomState(seed)
-    ae = rng.randn(me, n) * (rng.rand(me, n) < 0.4)
-    ai = rng.randn(mi, n) * (rng.rand(mi, n) < 0.4)
-    x_feas = rng.rand(n)
-    prob = pr.LPProblem(
-        c=jnp.asarray(rng.randn(n), jnp.float32),
-        lb=jnp.asarray(np.zeros(n), jnp.float32),
-        ub=jnp.asarray(np.ones(n), jnp.float32),
-        a_eq=pr.DenseMatrix(a=jnp.asarray(ae, jnp.float32), nrows=me,
-                            ncols=n),
-        b_eq=jnp.asarray(ae @ x_feas, jnp.float32),
-        a_ineq=pr.DenseMatrix(a=jnp.asarray(ai, jnp.float32), nrows=mi,
-                              ncols=n),
-        b_lower=None,
-        b_upper=jnp.asarray(ai @ x_feas + 0.5, jnp.float32),
-        n=n, m_eq=me, m_ineq=mi,
-    )
-    pre = dict(
-        diag_t=1.0 / jnp.maximum(
-            prob.a_eq.abs_power_colsum(1.0)
-            + prob.a_ineq.abs_power_colsum(1.0), 1e-9),
-        theta=jnp.asarray(1.0, jnp.float32),
-        sigma_eq=1.0 / jnp.maximum(prob.a_eq.abs_power_rowsum(1.0), 1e-9),
-        sigma_ineq=1.0 / jnp.maximum(prob.a_ineq.abs_power_rowsum(1.0),
-                                     1e-9),
-    )
-    return prob, pre
-
-
-def test_dense_fused_matches_composed():
-    from pysparselp_tpu.solvers.chambolle_pock import cp_chunk_impl
-
-    prob, pre = _dense_problem(40, 90, 130, seed=2)
-    assert cp_fused.cp_dense_fused_eligible(prob, jnp.float32)
-    x0 = jnp.zeros(prob.n, jnp.float32)
-    state = (x0, x0, jnp.zeros(prob.m_eq, jnp.float32),
-             jnp.zeros(prob.m_ineq, jnp.float32))
-    ref_state, _ = cp_chunk_impl(prob, pre, state, 9)
-    fused_state = cp_fused.cp_dense_fused_chunk(prob, pre, state, 9,
-                                                theta=1.0)
-    for a, b in zip(fused_state, ref_state):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-5, atol=2e-5)
-
-
-def test_dense_fused_restart_matches_composed():
-    import jax.numpy as jnp2
-
-    from pysparselp_tpu.solvers.chambolle_pock import (
-        _cp_chunk_restart_device, _kkt_score)
-
-    prob, pre = _dense_problem(30, 70, 100, seed=8)
-    x0 = jnp2.zeros(prob.n, jnp2.float32)
-    state = (x0, x0, jnp2.zeros(prob.m_eq, jnp2.float32),
-             jnp2.zeros(prob.m_ineq, jnp2.float32))
-    rstate = {
-        "state": state,
-        "omega": jnp2.asarray(1.0, jnp2.float32),
-        "mu_restart": _kkt_score(prob, state[0], state[2],
-                                 state[3]).astype(jnp2.float32),
-        "mu_last": jnp2.asarray(np.inf, jnp2.float32),
-        "zx": state[0], "zeq": state[2], "zineq": state[3],
-    }
     r_ref, _ = _cp_chunk_restart_device(prob, pre, rstate, 25, 10)
     r_fused, _ = _cp_chunk_restart_device(
-        prob, pre, rstate, 25, 10, use_fused="dense", theta_f=1.0)
+        prob, pre, rstate, 25, 10, use_fused="dense", theta_f=1.0,
+        interpret=True)
     for k in r_ref:
         a, b = r_ref[k], r_fused[k]
         if isinstance(a, tuple):
-            for ai_, bi_ in zip(a, b):
-                np.testing.assert_allclose(np.asarray(bi_), np.asarray(ai_),
-                                           rtol=2e-5, atol=2e-5)
+            _assert_states_close(b, a, 2e-5)
         else:
             np.testing.assert_allclose(np.asarray(b), np.asarray(a),
                                        rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["SC105", "AFIRO", "KB2", "SC50A", "SC50B"])
+def test_netlib_kernel_matches_xla_chunk(name):
+    """The solver's own lowering of a vendored netlib LP: the kernel and
+    the XLA chunk agree after 50 iterations (f32; summation order
+    differs)."""
+    lp, _gt = bench._netlib_lp(name)
+    a_eq = lp.a_equalities.tocsr() if lp.a_equalities is not None else None
+    a_in, b_in = _fold_one_sided(lp.a_inequalities.tocsr(), lp.b_lower,
+                                 lp.b_upper)
+    prob, pre = build_cp_problem(lp.costsvector, a_eq, lp.b_equalities,
+                                 a_in, b_in, lp.lower_bounds,
+                                 lp.upper_bounds, jnp.float32)
+    assert kern.cp_dense_fused_eligible(prob), (type(prob.a_eq),
+                                                type(prob.a_ineq))
+    state = _state(prob)
+    ref, _ = cp_chunk_impl(prob, pre, state, 50)
+    got = kern.cp_dense_fused_chunk(prob, pre, state, 50, 1.0,
+                                    interpret=True)
+    for g, r in zip(got, ref):
+        r = np.asarray(r, np.float64)
+        err = np.max(np.abs(np.asarray(g) - r), initial=0.0)
+        assert err <= 1e-4 * max(1.0, np.max(np.abs(r), initial=0.0)), err
+
+
+def test_dense_fused_chunks_compose():
+    prob, pre = _dense_problem(20, 35, 50, seed=3)
+    state = _state(prob)
+    s7 = kern.cp_dense_fused_chunk(prob, pre, state, 7, 1.0, interpret=True)
+    s3 = kern.cp_dense_fused_chunk(prob, pre, state, 3, 1.0, interpret=True)
+    s34 = kern.cp_dense_fused_chunk(prob, pre, s3, 4, 1.0, interpret=True)
+    _assert_states_close(s34, s7, 1e-6)
+
+
+def test_dense_fused_restart_sums():
+    """with_sums returns Σ over the chunk of x, y_eq and y_ineq."""
+    prob, pre = _dense_problem(12, 20, 30, seed=4)
+    state = _state(prob)
+    out = kern.cp_dense_fused_call(prob, pre, state[0], state[2], state[3],
+                                   6, 1.0, interpret=True, with_sums=True)
+    sums = [np.zeros(prob.n), np.zeros(prob.m_eq), np.zeros(prob.m_ineq)]
+    s = state
+    for _ in range(6):
+        s = kern.cp_dense_fused_chunk(prob, pre, s, 1, 1.0, interpret=True)
+        for acc, v in zip(sums, (s[0], s[2], s[3])):
+            acc += np.asarray(v, np.float64)
+    _assert_states_close(out[:4], s, 1e-6)
+    for got, ref in zip(out[4:], sums):
+        np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("me,mi,n", [(3, 5, 7), (0, 33, 17), (9, 0, 65),
+                                     (64, 64, 128)])
+def test_dense_fused_pads_to_powers_of_two(me, mi, n):
+    prob, pre = _dense_problem(me, mi, n, seed=me + mi + n)
+    n_pad, me_pad, mi_pad = kern.padded_shapes(prob)
+    for size, pad in ((n, n_pad), (me, me_pad), (mi, mi_pad)):
+        if size:
+            assert pad >= size and pad & (pad - 1) == 0 and pad < 2 * size
+        else:
+            assert pad == 0
+    state = _state(prob)
+    ref, _ = cp_chunk_impl(prob, pre, state, 5)
+    got = kern.cp_dense_fused_chunk(prob, pre, state, 5, 1.0, interpret=True)
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    _assert_states_close(got, ref, 2e-5)
+
+
+def test_dense_fused_shape_gate():
+    prob, _ = _dense_problem(40, 90, 130, seed=5)
+    assert kern.cp_dense_fused_eligible(prob)
+    big, _ = _dense_problem(200, 200, 300, seed=5)    # 2 x 256 x 512 padded
+    assert not kern.cp_dense_fused_eligible(big)
+    f64 = dataclasses.replace(prob, a_eq=pr.DenseMatrix(
+        a=prob.a_eq.a.astype(jnp.float64), nrows=40, ncols=130))
+    assert not kern.cp_dense_fused_eligible(f64)
+    ell = dataclasses.replace(prob, a_ineq=pr.EllMatrix.from_scipy(
+        np.asarray(prob.a_ineq.a), dtype=jnp.float32))
+    assert not kern.cp_dense_fused_eligible(ell)
+    none = dataclasses.replace(prob, a_eq=None, a_ineq=None)
+    assert not kern.cp_dense_fused_eligible(none)
+
+
+def test_dense_fused_refuses_compiled_off_gpu():
+    assert jax.default_backend() != "gpu"
+    prob, pre = _dense_problem(4, 6, 8, seed=6)
+    with pytest.raises(RuntimeError, match="GPU"):
+        kern.cp_dense_fused_chunk(prob, pre, _state(prob), 2, 1.0)
+
+
+def test_solver_keeps_xla_iteration_off_gpu():
+    """Off a GPU the solver never picks the kernel (no silent interpreter
+    fallback), though the lowered problem is eligible."""
+    from pysparselp_tpu.solvers import chambolle_pock as cpm
+
+    lp, _gt = bench._netlib_lp("AFIRO")
+    lp.solve(method="chambolle_pock_ppd", nb_iter=20, nb_iter_plot=10,
+             dtype=np.float32)
+    assert cpm.last_plan["eq"] == "DenseMatrix"
+    assert cpm.last_plan["fused"] is None

@@ -118,3 +118,39 @@ def test_dia_bf16_exact_storage():
     assert np.abs(y - ref).max() < 1e-5
     np.testing.assert_allclose(np.asarray(d.abs_power_rowsum(1.0)),
                                np.abs(a.toarray()).sum(1), rtol=1e-6)
+
+
+def _random_dia(m, n, ndiag, seed, frac=0.6):
+    rng = np.random.RandomState(seed)
+    offs = rng.choice(np.arange(-m + 1, n), size=min(ndiag, m + n - 1),
+                      replace=False)
+    rows, cols, vals = [], [], []
+    for o in offs:
+        r = np.arange(max(0, -o), min(m, n - o))
+        r = r[rng.rand(r.size) < frac]
+        rows.append(r)
+        cols.append(r + o)
+        vals.append(rng.randn(r.size))
+    return scipy.sparse.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(m, n)).tocsr()
+
+
+@pytest.mark.parametrize("m,n,ndiag,seed", [
+    (130, 257, 9, 0),       # unaligned shapes, both signs of offsets
+    (64, 64, 5, 1),         # tiny
+    (700, 300, 25, 2),      # wide-landscape, many diagonals
+    (300, 700, 17, 3),      # portrait; offsets beyond +/-128
+])
+def test_dia_f32_random_offsets_match_scipy(m, n, ndiag, seed):
+    """Partially filled random diagonals in f32, both directions."""
+    a = _random_dia(m, n, ndiag, seed)
+    dia = DiaMatrix.from_scipy(a, dtype=jnp.float32, allow_bf16=False)
+    assert dia.vals.shape == (dia.ndiag, m)
+    assert dia.vals_t.shape == (dia.ndiag_t, n)
+    x = np.random.RandomState(seed + 100).randn(n).astype(np.float32)
+    y = np.random.RandomState(seed + 200).randn(m).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(dia.matvec(jnp.asarray(x))),
+                               a @ x, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(dia.rmatvec(jnp.asarray(y))),
+                               a.T @ y, rtol=2e-5, atol=2e-5)

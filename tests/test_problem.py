@@ -40,13 +40,11 @@ def test_lower_lp_roundtrip():
 
 
 def test_backend_cost_model_selection(monkeypatch):
-    """Auto-selection (TPU-only) picks by calibrated bytes-streamed cost."""
+    """Auto-selection picks by bytes-streamed cost, on every backend."""
     import scipy.sparse
 
     import pysparselp_tpu.problem as pm
-    from pysparselp_tpu.ops.bsr_pallas import BsrMatrix
-
-    monkeypatch.setattr(pm.jax, "default_backend", lambda: "tpu")
+    from pysparselp_tpu.ops.bsr import BsrMatrix, bsr_padded_entries
 
     # tiny dense-friendly matrix -> dense
     rng = np.random.RandomState(0)
@@ -60,9 +58,9 @@ def test_backend_cost_model_selection(monkeypatch):
     monkeypatch.setattr(pm, "DENSE_AUTO_MAX_ENTRIES", 1000)
     assert isinstance(pm.ell_from_scipy(band), pm.DiaMatrix)
 
-    # many-staircase-diagonal structured matrix (Potts-like): as a WHOLE
-    # matrix, BSR beats DIA once the per-diagonal re-read traffic is
-    # accounted for...
+    # many-staircase-diagonal structured matrix (Potts-like): gathers of a
+    # local pattern are cheap, so gather-ELL beats 128x128 tiles and every
+    # column split of the staircase bands
     rows = np.arange(20000).repeat(3)
     cols_ = np.stack([rows[::3], rows[::3] // 7 + 9000,
                       rows[::3] // 3 + 14000], 1).ravel()
@@ -70,16 +68,14 @@ def test_backend_cost_model_selection(monkeypatch):
         (np.ones(rows.size), (rows, np.clip(cols_, 0, 19999))),
         shape=(20000, 20000)).tocsr()
     whole, whole_cost = pm.estimate_stream_bytes(m2, None)
-    assert whole == "bsr", (whole, whole_cost)
+    assert whole == "ell", (whole, whole_cost)
+    assert whole_cost < bsr_padded_entries(m2) * 8
     assert isinstance(pm.ell_from_scipy(m2, prefer="bsr"), BsrMatrix)
-    # ...but its column-density jumps (slope-1 / slope-1/7 / slope-1/3
-    # bands) admit a split whose per-block DIA layouts price below the
-    # whole-matrix BSR, so the auto path returns the composite (r4)
-    sel = pm.ell_from_scipy(m2)
-    assert isinstance(sel, pm.ColBlockMatrix), type(sel).__name__
     split_cost, cuts = pm.col_split_plan(m2, None)
-    assert cuts and split_cost < pm.COL_SPLIT_MIN_GAIN * whole_cost, (
-        split_cost, whole_cost)
+    assert not cuts and split_cost == whole_cost
+    sel = pm.ell_from_scipy(m2)
+    assert isinstance(sel, (pm.EllMatrix, pm.SegmentedEllMatrix)), (
+        type(sel).__name__)
 
 
 def test_rcm_permutation_is_a_permutation():
@@ -101,7 +97,7 @@ def test_rcm_permutation_is_a_permutation():
 
 def test_rcm_reduces_potts_padding():
     from pysparselp_tpu.examples.potts import build_linear_program
-    from pysparselp_tpu.ops.bsr_pallas import bsr_padded_entries
+    from pysparselp_tpu.ops.bsr import bsr_padded_entries
     from pysparselp_tpu.problem import rcm_permutation
     from pysparselp_tpu.solvers.chambolle_pock import _fold_one_sided
 
@@ -111,7 +107,8 @@ def test_rcm_reduces_potts_padding():
     assert bsr_padded_entries(a[rows, :][:, cols]) < 0.7 * bsr_padded_entries(a)
 
 
-@pytest.mark.parametrize("prefer", ["ell", "dia", "dense", "bsr", "routed"])
+@pytest.mark.parametrize("prefer", ["ell", "dia", "dense", "bsr",
+                                    "segmented"])
 def test_abs_power_zero_counts_stored_entries_only(prefer):
     """alpha in {0, 2} sends p=0 through abs_power_*: padded layout slots
     must not count (0**0 == 0 in every backend), matching the reference's

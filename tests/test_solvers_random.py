@@ -62,7 +62,7 @@ def test_unknown_method_raises():
 
 def test_mehrotra_warns_below_float64():
     """Interior point needs f64; sub-f64 dtypes warn instead of silently
-    stalling at a coarse tolerance (observed on the TPU f32 default)."""
+    stalling at a coarse tolerance (observed with the f32 default)."""
     import warnings
 
     import scipy.sparse
